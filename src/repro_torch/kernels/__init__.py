@@ -1,0 +1,2 @@
+"""Hand-written CUDA kernels of the port, their wrappers and plain
+PyTorch versions."""
