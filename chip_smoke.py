@@ -1,4 +1,4 @@
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -8,19 +8,34 @@ Phases (every one that fails exits non-zero; there is no CPU path):
    matmul, so f32 means f32.
 2. Build: every CUDA source under ``src/repro_torch/kernels/csrc/`` with
    ``nvcc`` (one process per source, all at once).
-3. Kernel vs plain version: the int8 quantizer at the main path's shapes
-   (and ragged, all-zero, random-noise and bf16 cases) against its plain
-   PyTorch version on the same inputs, bitwise (both divide in IEEE f32);
-   times from CUDA events over CUDA-graph replays (device time, L2 warm
-   as on the main path, where conv1 has just written the activation).
-4. Main path: AlexNet 224x224 at full width, B=64, int8 wire:
-   ``Fleet.from_table2`` -> ``plan`` -> ``Plan.init_params`` ->
-   ``Plan.step_fn``, 13 steps on one fixed batch each on the M=1 triple
-   and the M=4 star (3 checked: finite, falling; all timed), with the
-   launch counter zeroed just before and read just after; then
-   ``wire="none"`` on the same cuts against the vanilla SGD step, and
-   the int8-vs-none loss gap against the repo's int8 budget.
-5. One JSON line of kernels; last, the ``{"ok": true, ...}`` line.
+3. Kernels vs their plain versions, on the card, at the main paths'
+   shapes and a few more: the int8 quantizer bitwise; flash attention
+   and the GLA scan within the ``TOL`` rule of tests/test_kernel_oracle.py
+   (``atol + ulps * ulp`` in the storage dtype).  Times from CUDA events
+   over CUDA-graph replays (device time, L2 warm); the library time is
+   one PyTorch call computing the same function, where there is one
+   (``scaled_dot_product_attention`` for causal attention).
+4. AlexNet 224x224 at full width, B=64, int8 wire: ``Fleet.from_table2``
+   -> ``plan`` -> ``Plan.init_params`` -> ``Plan.step_fn`` on the M=1
+   triple and the M=4 star; ``wire="none"`` on the same cuts against
+   the vanilla SGD step; the int8-vs-none loss gap.
+5. LM ``fleet-gla`` (zamba stack: 12 Mamba2 blocks, an attention block
+   every 4, d_model 512, vocab 32,000), T=512, B=64, int8 wire:
+   ``Fleet.lm_default(m)`` -> ``plan`` -> ``Plan.step_fn`` on M=1 and
+   M=4 through all three kernels; an f32 ``wire="none"`` variant on the
+   same cuts against ``reference_sgd_step``; the per-token int8 gap.
+6. LM zamba2-7b at its published widths, depth cut to one group (6
+   Mamba2 blocks + 1 attention block), T=512, B=8: ``plan`` ->
+   ``step_fn``, 3 steps through flash attention and the GLA scan.
+   After its checked steps each LM path runs one step under
+   ``torch.profiler``: device busy time against wall time, and the
+   kernels that took the most.
+7. One JSON line of kernels; last, the ``{"ok": true, ...}`` line.
+
+Each main path (4, 5 per plan, 6) zeroes every launch counter just
+before its steps and reads them just after, and fails unless each
+kernel of the path launched exactly as often as the schedule's
+executed segments imply.
 """
 from __future__ import annotations
 
@@ -34,14 +49,34 @@ from pathlib import Path
 
 H100_BYTES_PER_S = 3.35e12        # HBM3, H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12       # f32 outside the tensor cores
+H100_BF16_FLOP_PER_S = 989e12     # dense bf16 tensor cores
 E2E_LOSS_GAP = 0.02               # int8-vs-none loss budget (tests/test_wire.py)
 REF_UPDATE_RTOL = 1e-2            # hybrid vs vanilla SGD, see check_reference
 REF_LOSS_RTOL = 1e-5
 # lr 1e-4: He-initialised AlexNet starts near loss 10 on random data and
 # diverges at the repo's usual 0.05.
 B, LR, SEED, BATCH_SEED = 64, 1e-4, 0, 100
-STEPS, TIMED_STEPS = 3, 10
+STEPS, TIMED_STEPS = 3, 6
 WIRE_SHAPE_N = 28 * 28 * 64       # AlexNet cut 1: conv1 + pool output
+
+# LM paths.  sum_loss is a per-sequence sum (about T ln V = 5,300 at
+# init), so SGD takes lr of order 1/T of a per-token-mean lr; these fall
+# on a fixed batch in bf16 (see PERF.md).
+LM_T, LM_B, LM_LR, LM_STEPS = 512, 64, 5e-4, 4
+Z7_B, Z7_LR, Z7_STEPS = 8, 5e-4, 3
+
+# Pinned kernel tolerances of tests/test_kernel_oracle.py:40-49:
+# |got - want| <= atol + ulps * ulp_dtype(|want|).
+TOL = {
+    ("flash_o", "float32"): (2e-6, 16.0),
+    ("flash_o", "bfloat16"): (1e-3, 4.0),
+    ("flash_lse", "float32"): (2e-6, 16.0),
+    ("flash_lse", "bfloat16"): (2e-5, 64.0),
+    ("gla_y", "float32"): (1e-4, 64.0),
+    ("gla_y", "bfloat16"): (2e-2, 8.0),
+    ("gla_state", "float32"): (1e-4, 64.0),
+    ("gla_state", "bfloat16"): (1e-2, 64.0),
+}
 
 
 def fail(msg: str) -> None:
@@ -73,27 +108,60 @@ def graph_ms(torch, fn, reps: int = 10, trials: int = 25) -> float:
         e.record()
         e.synchronize()
         times.append(s.elapsed_time(e) / reps)
+    del g
     return statistics.median(times)
 
 
-def quant_bound(M: int, N: int, x_bytes: int, u_tensor: bool) -> tuple:
-    """Least time for one quantize call: each input read once, each output
-    written once, vs ~6 f32 operations per element (abs, max, divide, add,
-    floor, clamp)."""
-    nbytes = M * N * (x_bytes + 1 + (4 if u_tensor else 0)) + 4 * M
+def bound(nbytes: float, flops: float, flop_rate: float) -> tuple:
+    """Least time on the card: bytes over the memory rate against
+    operations over the peak rate for their type."""
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = 6.0 * M * N / H100_F32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def tol_check(torch, kind: str, got, want, dtype) -> tuple:
+    """The oracle rule: returns (ok, max abs err, worst err/allowed)."""
+    name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    atol, ulps = TOL[(kind, name)]
+    g, w = got.float(), want.float()
+    if g.shape != w.shape:
+        fail(f"{kind}: shape {tuple(g.shape)} vs {tuple(w.shape)}")
+    mag = w.abs().clamp_min(torch.finfo(torch.float32).tiny)
+    _, e = torch.frexp(mag)
+    ulp = torch.ldexp(torch.ones_like(mag), e - 24)
+    if dtype == torch.bfloat16:
+        ulp = ulp * 2.0 ** 16
+    err = (g - w).abs()
+    allowed = atol + ulps * ulp
+    ok = bool(torch.isfinite(g).all()) and bool((err <= allowed).all())
+    return ok, float(err.max()), float((err / allowed).max())
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: kernels against their plain versions.
+# ---------------------------------------------------------------------------
+
+
+def quant_bound(M: int, N: int, x_bytes: int, u_tensor: bool) -> tuple:
+    """One quantize call: each input read once, each output written
+    once, vs ~6 f32 operations per element (abs, max, divide, add, floor,
+    clamp)."""
+    nbytes = M * N * (x_bytes + 1 + (4 if u_tensor else 0)) + 4 * M
+    return bound(nbytes, 6.0 * M * N, H100_F32_FLOP_PER_S)
+
+
 def check_quantizer(torch, iq, ref) -> dict:
-    """Phase 3: the kernel against its plain version, bitwise."""
+    """The int8 kernel against its plain version, bitwise."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
     cases = []
-    for m in (39, 33, 6, 5, 4):                   # the wire's rows
+    for m in (39, 33, 6, 5, 4):                   # AlexNet's wire rows
         cases.append((f"wire_{m}x{WIRE_SHAPE_N}", torch.randn(
             m, WIRE_SHAPE_N, generator=g, device=dev), 0.5))
+    for m in (35, 38):                            # fleet-gla's wire rows
+        cases.append((f"lm_bf16_{m}x{LM_T * 512}", torch.randn(
+            m, LM_T * 512, generator=g, device=dev).to(torch.bfloat16), 0.5))
     zero = torch.randn(3, 1000, generator=g, device=dev)
     zero[1] = 0.0
     cases += [
@@ -115,21 +183,164 @@ def check_quantizer(torch, iq, ref) -> dict:
                   float((s - sr).abs().max()))
         M, N = x.shape
         utensor = isinstance(u, torch.Tensor)
-        bound, by = quant_bound(M, N, x.element_size(), utensor)
+        bnd, by = quant_bound(M, N, x.element_size(), utensor)
         row = {"case": name, "shape": [M, N], "dtype": str(x.dtype),
                "equal": equal, "max_abs_err": err,
                "ms": graph_ms(torch, lambda: iq.quantize_int8(x, u)),
                "plain_ms": graph_ms(torch,
                                     lambda: ref.ref_quantize_int8(x, u)),
-               "bound_ms": bound, "bound_by": by}
+               "bound_ms": bnd, "bound_by": by, "library_ms": None}
         rows.append(row)
         print(f"  {name:22s} equal={equal} kernel {row['ms'] * 1e3:9.2f} us"
               f"  plain {row['plain_ms'] * 1e3:9.2f} us  bound "
-              f"{bound * 1e3:7.2f} us ({by})")
+              f"{bnd * 1e3:7.2f} us ({by})")
         if not equal:
             fail(f"int8_quant disagrees with its plain version on {name} "
                  f"(max abs err {err})")
     return {r["case"]: r for r in rows}
+
+
+def attention_pairs(T: int, S: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks keep: the work this run's data
+    needs."""
+    n = 0
+    for t in range(T):
+        hi = min(S - 1, t) if causal else S - 1
+        lo = max(0, t - window + 1) if window > 0 else 0
+        n += max(0, hi - lo + 1)
+    return n
+
+
+# (name, BH, BKV, T, hd, dtype, causal, window)
+FLASH_CASES = (
+    ("fleet_gla_64x8_512_64", 64 * 8, 64 * 8, 512, 64, "bf16", True, 0),
+    ("zamba2_7b_8x32_512_112", 8 * 32, 8 * 32, 512, 112, "bf16", True, 0),
+    ("gqa_rep2_64x8_512_64", 64 * 8, 64 * 4, 512, 64, "bf16", True, 0),
+    ("window128_16x8_512_128", 16 * 8, 16 * 8, 512, 128, "bf16", True, 128),
+    ("f32_ragged_32_300_64", 32, 16, 300, 64, "f32", True, 0),
+    ("f32_noncausal_w64_16_200_112", 16, 16, 200, 112, "f32", False, 64),
+)
+
+
+def check_flash(torch, fa, ref) -> dict:
+    """Flash attention against its plain version at the TOL rule."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    rows = {}
+    for name, BH, BKV, T, hd, dt, causal, window in FLASH_CASES:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        q = torch.randn(BH, T, hd, generator=g, device=dev).to(dtype)
+        k = torch.randn(BKV, T, hd, generator=g, device=dev).to(dtype)
+        v = torch.randn(BKV, T, hd, generator=g, device=dev).to(dtype)
+        o, lse = fa.flash_attention_fwd(q, k, v, causal, window)
+        o_r, lse_r = ref.ref_flash_attention(q, k, v, causal=causal,
+                                             window=window)
+        torch.cuda.synchronize()
+        ok_o, err_o, ex_o = tol_check(torch, "flash_o", o, o_r, dtype)
+        ok_l, err_l, ex_l = tol_check(torch, "flash_lse", lse, lse_r, dtype)
+        rate = H100_BF16_FLOP_PER_S if dtype == torch.bfloat16 \
+            else H100_F32_FLOP_PER_S
+        nbytes = (2 * BH * T * hd + 2 * BKV * T * hd) * q.element_size() \
+            + 4 * BH * T
+        flops = 4.0 * hd * BH * attention_pairs(T, T, causal, window)
+        bnd, by = bound(nbytes, flops, rate)
+        heavy = BH * T * T > 2 ** 26
+        library = None
+        if causal and window == 0:
+            qs, ks, vs = q[None], k[None], v[None]
+            library = graph_ms(torch, lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True, enable_gqa=BH != BKV))
+        row = {"case": name, "shape": {"q": [BH, T, hd], "kv": [BKV, T, hd]},
+               "dtype": str(dtype), "causal": causal, "window": window,
+               "ok": ok_o and ok_l, "max_abs_err": max(err_o, err_l),
+               "o_err": err_o, "lse_err": err_l,
+               "o_err_over_tol": ex_o, "lse_err_over_tol": ex_l,
+               "ms": graph_ms(torch, lambda: fa.flash_attention_fwd(
+                   q, k, v, causal, window)),
+               "plain_ms": graph_ms(torch, lambda: ref.ref_flash_attention(
+                   q, k, v, causal=causal, window=window),
+                   reps=3 if heavy else 10, trials=10 if heavy else 25),
+               "bound_ms": bnd, "bound_by": by, "library_ms": library,
+               "flops": flops, "bytes": nbytes}
+        rows[name] = row
+        lib = "none" if library is None else f"{library:.5f}"
+        print(f"  {name:30s} ok={row['ok']} o err {err_o:.3e} "
+              f"({ex_o:.3f} of tol) lse err {err_l:.3e} ({ex_l:.3f}); "
+              f"kernel {row['ms']:.5f} ms plain {row['plain_ms']:.5f} ms "
+              f"bound {bnd:.5f} ms ({by}) library {lib} ms")
+        if not row["ok"]:
+            fail(f"flash_attention disagrees with its plain version on "
+                 f"{name}")
+    return rows
+
+
+# (name, BH, T, dk, dv, chunk, dtype, normalize)
+GLA_CASES = (
+    ("fleet_gla_64x16_512_64_W128", 64 * 16, 512, 64, 64, 128, "bf16",
+     False),
+    ("zamba2_7b_8x112_512_64_W256", 8 * 112, 512, 64, 64, 256, "bf16",
+     False),
+    ("normalize_16_512_128_W128", 16, 512, 128, 128, 128, "bf16", True),
+    ("f32_ragged_32_300_64_W128", 32, 300, 64, 64, 128, "f32", False),
+    ("f32_normalize_8_96_16x40_W32", 8, 96, 16, 40, 32, "f32", True),
+)
+
+
+def gla_flops(BH: int, T: int, dk: int, dv: int, W: int) -> float:
+    """``_gla_flops`` of the JAX layer stack (layerstack.py:172-176)."""
+    return float(T * BH * (2 * W * (dk + dv) + 4 * dk * dv))
+
+
+def check_gla(torch, gs, ref) -> dict:
+    """The GLA scan against its plain version (the step recurrence) at
+    the TOL rule, on Mamba2-like inputs (log-decays -softplus(N - 2))."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    rows = {}
+    for name, BH, T, dk, dv, W, dt, normalize in GLA_CASES:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        q = torch.randn(BH, T, dk, generator=g, device=dev).to(dtype)
+        k = (0.3 * torch.randn(BH, T, dk, generator=g, device=dev)).to(dtype)
+        v = torch.randn(BH, T, dv, generator=g, device=dev).to(dtype)
+        a = -F.softplus(torch.randn(BH, T, generator=g, device=dev) - 2.0)
+        y, S, n = gs.gla_scan_fwd(q, k, v, a, W, normalize)
+        y_r, S_r, n_r = ref.ref_gla(q, k, v, a, normalize=normalize)
+        torch.cuda.synchronize()
+        ok_y, err_y, ex_y = tol_check(torch, "gla_y", y, y_r, dtype)
+        ok_s, err_s, ex_s = tol_check(torch, "gla_state", S, S_r, dtype)
+        ok_n, err_n, ex_n = tol_check(torch, "gla_state", n, n_r, dtype)
+        rate = H100_BF16_FLOP_PER_S if dtype == torch.bfloat16 \
+            else H100_F32_FLOP_PER_S
+        nbytes = BH * T * (2 * dk + 2 * dv) * q.element_size() \
+            + 4 * BH * T + 4 * BH * (dk * dv + dk)
+        bnd, by = bound(nbytes, gla_flops(BH, T, dk, dv, min(W, T)), rate)
+        row = {"case": name, "shape": {"qk": [BH, T, dk], "v": [BH, T, dv]},
+               "chunk": W, "dtype": str(dtype), "normalize": normalize,
+               "ok": ok_y and ok_s and ok_n,
+               "max_abs_err": max(err_y, err_s, err_n), "y_err": err_y,
+               "S_err": err_s, "n_err": err_n, "y_err_over_tol": ex_y,
+               "S_err_over_tol": ex_s, "n_err_over_tol": ex_n,
+               "ms": graph_ms(torch, lambda: gs.gla_scan_fwd(
+                   q, k, v, a, W, normalize)),
+               "plain_ms": graph_ms(torch, lambda: ref.ref_gla(
+                   q, k, v, a, normalize=normalize), reps=1, trials=5),
+               "bound_ms": bnd, "bound_by": by, "library_ms": None,
+               "bytes": nbytes}
+        rows[name] = row
+        print(f"  {name:30s} ok={row['ok']} y err {err_y:.3e} ({ex_y:.3f} "
+              f"of tol) S err {err_s:.3e} ({ex_s:.3f}) n err {err_n:.3e} "
+              f"({ex_n:.3f}); kernel {row['ms']:.5f} ms plain "
+              f"{row['plain_ms']:.5f} ms bound {bnd:.5f} ms ({by})")
+        if not row["ok"]:
+            fail(f"gla_scan disagrees with its plain version on {name}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: AlexNet.
+# ---------------------------------------------------------------------------
 
 
 def crossings(sched) -> int:
@@ -147,10 +358,19 @@ def batch(torch):
     return x, y
 
 
-def run_plan(torch, api, iq, cnn, m: int) -> dict:
-    """Phase 4 for one fleet: plan, then int8 steps through Plan.step_fn
+def zero_counters(kernels) -> None:
+    for mod in kernels.values():
+        mod.launches = 0
+
+
+def read_counters(kernels) -> dict:
+    return {name: mod.launches for name, mod in kernels.items()}
+
+
+def run_plan(torch, api, kernels, cnn, m: int) -> dict:
+    """AlexNet for one fleet: plan, then int8 steps through Plan.step_fn
     (``STEPS`` checked, ``TIMED_STEPS`` more for the step time), with the
-    quantizer's launch counter zeroed just before and read just after."""
+    launch counters zeroed just before and read just after."""
     fleet = api.Fleet.from_table2("alexnet", m=m, wire="int8")
     p = api.plan(cnn.alexnet(), fleet, B)
     sched = p.multi_schedule
@@ -163,7 +383,7 @@ def run_plan(torch, api, iq, cnn, m: int) -> dict:
     x, y = batch(torch)
     n_steps = STEPS + TIMED_STEPS
     losses, ms = [], []
-    iq.launches = 0
+    zero_counters(kernels)
     for _ in range(n_steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -171,20 +391,21 @@ def run_plan(torch, api, iq, cnn, m: int) -> dict:
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(loss))
-    launches = iq.launches
+    launches = read_counters(kernels)
+    want = {"int8_quant": 2 * n_cross * n_steps, "flash_attention": 0,
+            "gla_scan": 0}
     print(f"  M={m} losses {losses}")
     print(f"  M={m} step ms {ms}")
-    print(f"  M={m} quantizer launches {launches} (expected "
-          f"{2 * n_cross * n_steps})")
+    print(f"  M={m} launches {launches} (expected {want})")
     if not all(math.isfinite(v) for v in losses):
         fail(f"M={m}: non-finite loss {losses}")
     if not losses[STEPS - 1] < losses[0]:
         fail(f"M={m}: the loss did not fall on a fixed batch: {losses}")
-    if launches != 2 * n_cross * n_steps:
-        fail(f"M={m}: {launches} quantizer launches, expected "
-             f"2 x {n_cross} crossings x {n_steps} steps")
+    if launches != want:
+        fail(f"M={m}: launches {launches}, expected {want}")
     return {"plan": p, "losses": losses, "step_ms": ms,
-            "launches": launches, "crossings": n_cross}
+            "launches": launches, "crossings": n_cross,
+            "launches_per_step": {k: v // n_steps for k, v in want.items()}}
 
 
 def step_fn(hs, p):
@@ -193,45 +414,70 @@ def step_fn(hs, p):
         else hs.multi_hybrid_step_from_schedule
 
 
-def check_reference(torch, hs, run) -> dict:
-    """``wire="none"`` on the plan's cuts against vanilla SGD on the card.
+def leaves(tree, prefix: str = ""):
+    """``(path, tensor)`` of a nested dict in sorted key order."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
 
-    The two differ only in summation order (a batch split against the
-    whole batch, and cuDNN's choice of algorithm for each batch size), so
-    each leaf's update ``p_new - p`` must agree to ``REF_UPDATE_RTOL`` of
-    its largest entry and the loss to ``REF_LOSS_RTOL``.  A routing or
-    aggregation fault (a worker's gradient dropped or counted twice)
-    moves an update by about ``b_worker / B``, tens of percent here.
-    Both f32 updates are also measured against a float64 vanilla step,
-    for the record."""
+
+def compare_updates(torch, hs, stack, params, x, y, sched_run, lr,
+                    f64: bool = False) -> dict:
+    """A ``wire="none"`` hybrid step against vanilla SGD from the same
+    params: each leaf's update ``p_new - p`` must agree to
+    ``REF_UPDATE_RTOL`` of its largest entry and the loss to
+    ``REF_LOSS_RTOL``.  Both differ only in summation order (a batch
+    split against the whole batch, and the libraries' choice of
+    algorithm for each batch size); a routing or aggregation fault (a
+    worker's gradient dropped or counted twice) moves an update by about
+    ``b_worker / B``, tens of percent here.  With ``f64`` both updates
+    are also measured against a float64 vanilla step, for the record."""
+    hyb, hl = sched_run(params)
+    ref, rl = hs.reference_sgd_step(stack, params, x, y, lr)
+    exact = params
+    if f64:
+        p64 = [{k: v.double() for k, v in q.items()} for q in params]
+        exact, _ = hs.reference_sgd_step(stack, p64, x.double(), y, lr)
+    names = [m.name for m in stack.cut_meta()]
+    out = []
+    for i, (p0, ph, pr, pe) in enumerate(zip(params, hyb, ref, exact)):
+        for (path, a), (_, b), (_, c), (_, e) in zip(
+                leaves(p0), leaves(ph), leaves(pr), leaves(pe)):
+            u_h, u_r = b.double() - a.double(), c.double() - a.double()
+            top = max(float(u_r.abs().max()), 1e-300)
+            row = {"leaf": f"{names[i]}.{path}",
+                   "hybrid_vs_ref": float((u_h - u_r).abs().max()) / top}
+            if f64:
+                u_e = e - a.double()
+                top_e = max(float(u_e.abs().max()), 1e-300)
+                row["hybrid_vs_f64"] = float((u_h - u_e).abs().max()) / top_e
+                row["ref_vs_f64"] = float((u_r - u_e).abs().max()) / top_e
+            out.append(row)
+    worst = max(out, key=lambda d: d["hybrid_vs_ref"])
+    lgap = abs(float(hl) - float(rl)) / abs(float(rl))
+    return {"loss_rel_gap": lgap, "worst": worst, "leaves": out,
+            "ok": worst["hybrid_vs_ref"] <= REF_UPDATE_RTOL
+            and lgap <= REF_LOSS_RTOL}
+
+
+def check_reference(torch, hs, run) -> dict:
+    """AlexNet: ``wire="none"`` on the plan's cuts against vanilla SGD on
+    the card (f32)."""
     p = run["plan"]
-    stack = p.model
     params = p.init_params(seed=SEED)
     x, y = batch(torch)
-    hyb, hl = step_fn(hs, p)(stack, params, x, y, p.schedule, LR,
-                             wire="none")
-    ref, rl = hs.reference_sgd_step(stack, params, x, y, LR)
-    p64 = [{k: v.double() for k, v in q.items()} for q in params]
-    ref64, _ = hs.reference_sgd_step(stack, p64, x.double(), y, LR)
-    leaves = []
-    for i, (p0, ph, pr, pe) in enumerate(zip(p64, hyb, ref, ref64)):
-        for k in sorted(p0):
-            u_h, u_r, u_e = ph[k].double() - p0[k], pr[k].double() - p0[k], \
-                pe[k] - p0[k]
-            top = max(float(u_e.abs().max()), 1e-300)
-            leaves.append({
-                "leaf": f"{stack.cut_meta()[i].name}.{k}",
-                "hybrid_vs_ref": float((u_h - u_r).abs().max()) /
-                max(float(u_r.abs().max()), 1e-300),
-                "hybrid_vs_f64": float((u_h - u_e).abs().max()) / top,
-                "ref_vs_f64": float((u_r - u_e).abs().max()) / top})
-    worst = max(leaves, key=lambda d: d["hybrid_vs_ref"])
-    lgap = abs(float(hl) - float(rl)) / abs(float(rl))
+    res = compare_updates(
+        torch, hs, p.model, params, x, y,
+        lambda q: step_fn(hs, p)(p.model, q, x, y, p.schedule, LR,
+                                 wire="none"), LR, f64=True)
     print(f"  {p.fleet.topology} reference check: loss rel gap "
-          f"{lgap!r}; worst leaf {worst}")
-    if worst["hybrid_vs_ref"] > REF_UPDATE_RTOL or lgap > REF_LOSS_RTOL:
+          f"{res['loss_rel_gap']!r}; worst leaf {res['worst']}")
+    if not res["ok"]:
         fail("wire='none' hybrid step disagrees with vanilla SGD")
-    return {"loss_rel_gap": lgap, "leaves": leaves}
+    return {"loss_rel_gap": res["loss_rel_gap"], "worst": res["worst"]}
 
 
 def check_int8_gap(torch, hs, run) -> float:
@@ -252,6 +498,197 @@ def check_int8_gap(torch, hs, run) -> float:
     return max(gaps)
 
 
+# ---------------------------------------------------------------------------
+# Phases 5 and 6: the LM stacks.
+# ---------------------------------------------------------------------------
+
+
+def expected_lm_launches(stack, sched, wire: str) -> dict:
+    """Kernel launches of one step, from the schedule's executed
+    segments: each block runs once per non-empty batch that passes it
+    (worker o's running batch, and every non-empty TASK-S/L stream below
+    its cut); each int8 crossing quantizes forward and backward."""
+    kinds = stack.block_kinds
+    count = {"attn": 0, "mamba2": 0}
+    for i, kind in enumerate(kinds):
+        if kind not in count:
+            continue
+        o_batch = sched.b_o + sum(b for m, b in zip(sched.m_s, sched.b_s)
+                                  if m <= i) \
+            + (sched.b_l if sched.m_l <= i else 0)
+        n = int(o_batch > 0)
+        n += sum(1 for m, b in zip(sched.m_s, sched.b_s) if b and i < m)
+        n += int(sched.b_l > 0 and i < sched.m_l)
+        count[kind] += n
+    return {"flash_attention": count["attn"], "gla_scan": count["mamba2"],
+            "int8_quant": 2 * crossings(sched) if wire == "int8" else 0}
+
+
+def lm_steps(torch, kernels, p, params, x, y, lr: float, n_steps: int,
+             label: str) -> dict:
+    """``n_steps`` of ``Plan.step_fn`` on one fixed batch, with the launch
+    counters zeroed just before and read just after."""
+    step = p.step_fn(lr=lr)
+    T = x.shape[1]
+    losses, ms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(kernels)
+    for _ in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, loss = step(params, x, y)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    launches = read_counters(kernels)
+    per_step = expected_lm_launches(p.model, p.multi_schedule, p.wire)
+    want = {k: v * n_steps for k, v in per_step.items()}
+    peak = torch.cuda.max_memory_allocated()
+    per_token = [v / T for v in losses]
+    print(f"  {label} losses per sequence {losses}")
+    print(f"  {label} losses per token {per_token}")
+    print(f"  {label} step ms {ms}; peak memory {peak / 2 ** 30:.3f} GiB")
+    print(f"  {label} launches {launches} (expected {want})")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"{label}: non-finite loss {losses}")
+    if not all(b < a for a, b in zip(losses, losses[1:])):
+        fail(f"{label}: the loss did not fall on a fixed batch: {losses}")
+    if launches != want:
+        fail(f"{label}: launches {launches}, expected {want}")
+    prof = profile_step(torch, step, params, x, y, label)
+    return {"losses": losses, "per_token": per_token, "step_ms": ms,
+            "peak_bytes": peak, "launches": launches,
+            "launches_per_step": per_step, "profile": prof}
+
+
+def profile_step(torch, step, params, x, y, label: str) -> dict:
+    """One more step under ``torch.profiler``: device time by kernel
+    (one stream, so kernels do not overlap) against the step's wall
+    time, and the ten kernels that took the most.  Only the device-side
+    kernel events count: ``key_averages()`` also lists each host-side
+    operator with the device time of the kernels it launched."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, x, y)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    top = [{"ms": ms, "count": n, "name": name[:100]}
+           for ms, n, name in rows[:10]]
+    ours = {k: sum(ms for ms, _, name in rows if tag in name)
+            for k, tag in (("flash_attention", "flash_fwd"),
+                           ("gla_scan", "gla_fwd"),
+                           ("int8_quant", "quant_rows"))}
+    share = "not measured" if busy == 0 else \
+        f"{busy:.2f} ms, {busy / wall:.3f} of the profiled wall"
+    print(f"  {label} profiled step: wall {wall:.2f} ms, device busy "
+          f"{share}; our kernels {ours}")
+    for r in top:
+        print(f"    {r['ms']:9.3f} ms  x{r['count']:<5d} {r['name']}")
+    return {"wall_ms": wall, "device_busy_ms": busy, "ours_ms": ours,
+            "top": top}
+
+
+def to_float(torch, params):
+    def conv(t):
+        return {k: conv(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t.float()
+    return [conv(p) for p in params]
+
+
+def run_lm_fleet(torch, api, hs, kernels, stack, m: int) -> dict:
+    """fleet-gla on ``Fleet.lm_default(m)`` with the int8 wire: plan,
+    steps through all three kernels, the per-token int8 gap against
+    ``wire="none"`` on the same cuts, and an f32 ``wire="none"`` variant
+    on the same cuts against ``reference_sgd_step``."""
+    from repro_torch.models.lm.layerstack import lm_layerstack
+    fleet = api.Fleet.lm_default(m=m, wire="int8")
+    p = api.plan(stack, fleet, LM_B)
+    sched = p.multi_schedule
+    label = f"fleet-gla M={m}"
+    print(f"  {label} plan: {p.schedule}  T_total={p.t_total!r} s (model)")
+    if crossings(sched) == 0:
+        fail(f"{label}: the plan crosses no int8 wire (m > 0, b > 0)")
+    gen = torch.Generator(device="cuda").manual_seed(BATCH_SEED)
+    x, y = stack.dummy_batch(gen, LM_B)
+    run = lm_steps(torch, kernels, p, p.init_params(seed=SEED), x, y, LM_LR,
+                   LM_STEPS, label)
+
+    # the same steps with wire="none" on the same cuts: per-token gap
+    params = p.init_params(seed=SEED)
+    gaps = []
+    for k in range(LM_STEPS):
+        params, loss = hs.multi_hybrid_step_from_schedule(
+            stack, params, x, y, p.schedule, LM_LR, wire="none")
+        gaps.append(abs(float(loss) - run["losses"][k]) / LM_T)
+    del params
+    print(f"  {label} int8-vs-none per-token loss gaps {gaps}")
+    if max(gaps) > E2E_LOSS_GAP:
+        fail(f"{label}: per-token int8 loss gap {max(gaps)} exceeds "
+             f"{E2E_LOSS_GAP}")
+
+    # f32 variant, wire none, same cuts, against vanilla SGD
+    stack32 = lm_layerstack(stack.cfg.variant(dtype=torch.float32), LM_T,
+                            backend="cuda")
+    p32 = to_float(torch, p.init_params(seed=SEED))
+    res = compare_updates(
+        torch, hs, stack32, p32, x, y,
+        lambda q: hs.multi_hybrid_step_from_schedule(
+            stack32, q, x, y, p.schedule, LM_LR, wire="none"), LM_LR)
+    print(f"  {label} f32 reference check: loss rel gap "
+          f"{res['loss_rel_gap']!r}; worst leaf {res['worst']}")
+    if not res["ok"]:
+        fail(f"{label}: f32 wire='none' hybrid step disagrees with vanilla "
+             f"SGD")
+    del p32
+    torch.cuda.empty_cache()
+    run.update({"plan": str(p.schedule), "t_total": p.t_total,
+                "int8_gap_per_token": max(gaps),
+                "reference": {"loss_rel_gap": res["loss_rel_gap"],
+                              "worst": res["worst"]}})
+    return run
+
+
+def run_zamba2_7b(torch, api, kernels, stack) -> dict:
+    """zamba2-7b at full width, one group deep: plan, then steps."""
+    p = api.plan(stack, api.Fleet.lm_default(m=1, wire="int8"), Z7_B)
+    label = "zamba2-7b"
+    print(f"  {label} plan: {p.schedule}  T_total={p.t_total!r} s (model)")
+    n_params = sum(m.param_count for m in stack.cut_meta())
+    print(f"  {label} parameters: {n_params}")
+    gen = torch.Generator(device="cuda").manual_seed(BATCH_SEED)
+    x, y = stack.dummy_batch(gen, Z7_B)
+    run = lm_steps(torch, kernels, p, p.init_params(seed=SEED), x, y, Z7_LR,
+                   Z7_STEPS, label)
+    if run["launches"]["flash_attention"] == 0 or \
+            run["launches"]["gla_scan"] == 0:
+        fail(f"{label}: flash attention or the GLA scan never launched")
+    torch.cuda.empty_cache()
+    run.update({"plan": str(p.schedule), "params": n_params})
+    return run
+
+
+def steady(ms):
+    rest = sorted(ms[1:])
+    return {"median": statistics.median(rest), "max": rest[-1],
+            "n": len(rest), "first": ms[0]}
+
+
 def main() -> int:
     try:
         import torch
@@ -262,11 +699,17 @@ def main() -> int:
     root = Path(__file__).resolve().parent
     sys.path.insert(0, str(root / "src"))
     from repro_torch import api
+    from repro_torch.configs import zamba2_7b
     from repro_torch.core import hybrid_step as hs
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gla_scan as gs
     from repro_torch.kernels import int8_quant as iq
     from repro_torch.kernels import ref
     from repro_torch.models import cnn
+    from repro_torch.models.lm.fleet_configs import FLEET_GLA
+    from repro_torch.models.lm.layerstack import lm_layerstack
+    kernels = {"int8_quant": iq, "flash_attention": fa, "gla_scan": gs}
 
     # 1. card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -285,44 +728,86 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(built)}")
     for name, rep in built.items():
         for line in rep["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}")
 
-    # 3. kernel vs plain version
+    # 3. kernels vs plain versions
     print("int8_quant vs plain version (bitwise):")
-    cases = check_quantizer(torch, iq, ref)
+    qcases = check_quantizer(torch, iq, ref)
+    print("flash_attention vs plain version (TOL rule):")
+    fcases = check_flash(torch, fa, ref)
+    print("gla_scan vs plain version (TOL rule):")
+    gcases = check_gla(torch, gs, ref)
 
-    # 4. main path
+    # 4. AlexNet
     print("main path: AlexNet 224x224, B=64, wire=int8")
-    runs = {m: run_plan(torch, api, iq, cnn, m) for m in (1, 4)}
+    runs = {m: run_plan(torch, api, kernels, cnn, m) for m in (1, 4)}
     ref_gap = {m: check_reference(torch, hs, runs[m]) for m in (1, 4)}
     int8_gap = {m: check_int8_gap(torch, hs, runs[m]) for m in (1, 4)}
     for m, r in runs.items():
-        steady = sorted(r["step_ms"][1:])
-        print(f"  M={m} step ms after the first: median "
-              f"{statistics.median(steady)!r}, max {steady[-1]!r} "
-              f"({len(steady)} steps); first {r['step_ms'][0]!r}")
-    print("summary " + json.dumps({
-        "step_ms": {str(m): r["step_ms"] for m, r in runs.items()},
-        "losses": {str(m): r["losses"] for m, r in runs.items()},
-        "launches": {str(m): r["launches"] for m, r in runs.items()},
-        "reference": {str(m): g for m, g in ref_gap.items()},
-        "int8_loss_gap": {str(m): g for m, g in int8_gap.items()},
-        "quantizer_cases": list(cases.values())}))
+        print(f"  M={m} step ms {steady(r['step_ms'])}")
 
-    # 5. kernels line
-    main_case = cases[f"wire_39x{WIRE_SHAPE_N}"]
-    print(json.dumps({"kernels": [{
-        "name": "int8_quant", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/int8_quant.cu",
-        "replaces": "src/repro/kernels/int8_quant.py:29",
-        "launches": sum(r["launches"] for r in runs.values()),
-        "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
-        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"], "library_ms": None,
-        "shape": main_case["shape"],
-        "equal": all(c["equal"] for c in cases.values())}]}))
+    # 5. LM fleet-gla
+    print(f"main path: LM fleet-gla, T={LM_T}, B={LM_B}, wire=int8, "
+          f"lr {LM_LR}")
+    gla_stack = lm_layerstack(FLEET_GLA, LM_T, backend="cuda")
+    lm_runs = {m: run_lm_fleet(torch, api, hs, kernels, gla_stack, m)
+               for m in (1, 4)}
+    for m, r in lm_runs.items():
+        print(f"  fleet-gla M={m} step ms {steady(r['step_ms'])}")
+
+    # 6. zamba2-7b, full width, one group deep
+    z7cfg = zamba2_7b.FULL.variant(n_layers=6, shared_attn_every=6)
+    print(f"main path: zamba2-7b widths, n_layers=6 + 1 attention block, "
+          f"T={LM_T}, B={Z7_B}, lr {Z7_LR}")
+    z7 = run_zamba2_7b(torch, api, kernels,
+                       lm_layerstack(z7cfg, LM_T, backend="cuda"))
+    print(f"  zamba2-7b step ms {steady(z7['step_ms'])}")
+
+    path_runs = {"alexnet_M1": runs[1], "alexnet_M4": runs[4],
+                 "fleet_gla_M1": lm_runs[1], "fleet_gla_M4": lm_runs[4],
+                 "zamba2_7b": z7}
+    paths = {k: r["launches"] for k, r in path_runs.items()}
+    for name in kernels:
+        if all(counts[name] == 0 for counts in paths.values()):
+            fail(f"{name} never launched on a main path")
+    print("summary " + json.dumps({
+        "alexnet": {str(m): {"step_ms": r["step_ms"], "losses": r["losses"],
+                             "reference": ref_gap[m],
+                             "int8_loss_gap": int8_gap[m]}
+                    for m, r in runs.items()},
+        "fleet_gla": {str(m): {k: v for k, v in r.items()}
+                      for m, r in lm_runs.items()},
+        "zamba2_7b": z7, "launches": paths,
+        "quantizer_cases": list(qcases.values()),
+        "flash_cases": list(fcases.values()),
+        "gla_cases": list(gcases.values())}, default=str))
+
+    # 7. kernels line
+    def entry(name, source, replaces, main, cases, ok_key):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launches": sum(c[name] for c in paths.values()),
+                "launches_by_path": {p: c[name] for p, c in paths.items()},
+                "launches_per_step": {p: r["launches_per_step"][name]
+                                      for p, r in path_runs.items()},
+                "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+                "ms": main["ms"], "plain_ms": main["plain_ms"],
+                "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+                "library_ms": main["library_ms"], "case": main["case"],
+                "check": all(c[ok_key] for c in cases.values())}
+    print(json.dumps({"kernels": [
+        entry("int8_quant", "src/repro_torch/kernels/csrc/int8_quant.cu",
+              "src/repro/kernels/int8_quant.py:29",
+              qcases[f"wire_39x{WIRE_SHAPE_N}"], qcases, "equal"),
+        entry("flash_attention",
+              "src/repro_torch/kernels/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:33",
+              fcases[FLASH_CASES[0][0]], fcases, "ok"),
+        entry("gla_scan", "src/repro_torch/kernels/csrc/gla_scan.cu",
+              "src/repro/kernels/gla_scan.py:31",
+              gcases[GLA_CASES[0][0]], gcases, "ok"),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

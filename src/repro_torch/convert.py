@@ -1,27 +1,55 @@
 """Parameters across the package boundary, as numpy arrays.
 
 The port keeps the JAX package's parameter layout (a list with one
-``{"w", "b"}`` dict per cut-point, HWIO conv weights), so carrying
-weights over is only a conversion of arrays.
+nested dict of arrays per cut-point), so carrying weights over is only a
+conversion of arrays.  bf16 crosses without ``ml_dtypes``: a numpy array
+whose dtype is named ``bfloat16`` (what JAX hands out) is viewed as
+``uint16`` bits, carried into an ``int16`` tensor and viewed as
+``torch.bfloat16``, so no value is rounded.  numpy has no bf16 of its
+own, so :func:`params_to_numpy` widens a bf16 tensor to f32, which holds
+every bf16 value exactly (``jnp.asarray(a, jnp.bfloat16)`` restores the
+bits).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+Device = Optional[Union[str, torch.device]]
 
-def params_from_numpy(params: Sequence[Dict[str, np.ndarray]],
-                      device: Optional[Union[str, torch.device]] = None
-                      ) -> List[Dict[str, torch.Tensor]]:
-    """Tensors on ``device`` (default CPU) from a list of dicts of
+
+def _to_tensor(arr: Any, device: Device = None) -> torch.Tensor:
+    """A tensor on ``device`` (default CPU) with the bits of ``arr``."""
+    a = np.asarray(arr)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def _to_array(t: torch.Tensor) -> np.ndarray:
+    """A numpy array of ``t`` (bf16 widened exactly to f32)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()
+
+
+def _tree(fn, tree: Dict[str, Any]) -> Dict[str, Any]:
+    return {k: _tree(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def params_from_numpy(params: Sequence[Dict[str, Any]],
+                      device: Device = None
+                      ) -> List[Dict[str, Any]]:
+    """Tensors on ``device`` (default CPU) from a list of nested dicts of
     array-likes (numpy arrays, or anything ``np.asarray`` accepts)."""
-    return [{k: torch.from_numpy(np.array(v, copy=True)).to(device)
-             for k, v in p.items()} for p in params]
+    return [_tree(lambda v: _to_tensor(v, device), p) for p in params]
 
 
-def params_to_numpy(params: Sequence[Dict[str, torch.Tensor]]
-                    ) -> List[Dict[str, np.ndarray]]:
-    return [{k: v.detach().cpu().numpy() for k, v in p.items()}
-            for p in params]
+def params_to_numpy(params: Sequence[Dict[str, Any]]
+                    ) -> List[Dict[str, Any]]:
+    return [_tree(_to_array, p) for p in params]

@@ -19,11 +19,16 @@ storage (``p_o``, ``p_s = params[:m_s]``, ``p_l = params[:m_l]``), so
 autograd returns one gradient per copy and the weight update sums them in
 a fixed order (``g_o + g_s + g_l``), then scales by ``1/B`` once.  A
 shared leaf would let autograd accumulate the copies in its own order.
+A cut-point's params are a nested dict of tensors (``{"w", "b"}`` for a
+CNN layer, ``{"ln1": {...}, "attn": {...}, ...}`` for an LM block); every
+walk over them keeps the dict's nesting and visits leaves in sorted key
+order.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, Iterator, List, Optional,
+                    Sequence, Tuple)
 
 import torch
 
@@ -31,31 +36,56 @@ from repro_torch.core.cost_model import MultiSchedule, Schedule
 from repro_torch.core.layerstack import as_layerstack
 from repro_torch.core.wire import wire_act_bytes, wire_codec, wire_grad_bytes
 
-Params = List[Dict[str, torch.Tensor]]
+Tree = Dict[str, Any]          # nested dicts of tensors
+Params = List[Tree]            # one tree per cut-point
 Batch = Tuple[torch.Tensor, torch.Tensor]
+
+
+def _map(fn: Callable[..., torch.Tensor], tree: Tree, *rest: Tree) -> Tree:
+    """``fn`` over the leaves of ``tree`` (and the matching leaves of
+    ``rest``), keeping the nesting."""
+    return {k: _map(fn, v, *(r[k] for r in rest)) if isinstance(v, dict)
+            else fn(v, *(r[k] for r in rest)) for k, v in tree.items()}
+
+
+def _flatten(tree: Tree) -> List[torch.Tensor]:
+    """The leaves of ``tree`` in sorted key order."""
+    out: List[torch.Tensor] = []
+    for k in sorted(tree):
+        v = tree[k]
+        out.extend(_flatten(v) if isinstance(v, dict) else [v])
+    return out
+
+
+def _unflatten(tree: Tree, flat: Iterator[torch.Tensor]) -> Tree:
+    """``tree``'s nesting filled from ``flat`` (in :func:`_flatten`'s
+    order)."""
+    return {k: _unflatten(tree[k], flat) if isinstance(tree[k], dict)
+            else next(flat) for k in sorted(tree)}
 
 
 def _leaves(params: Params, n: int) -> Params:
     """Fresh autograd leaves over the storage of ``params[:n]``."""
-    return [{k: v.detach().requires_grad_(True) for k, v in p.items()}
+    return [_map(lambda v: v.detach().requires_grad_(True), p)
             for p in params[:n]]
 
 
 def _grads(loss: torch.Tensor, copies: Sequence[Params]) -> List[Params]:
     """d loss / d every leaf of every copy (zeros where unused)."""
-    flat = [(c, i, k) for c, cp in enumerate(copies)
-            for i, p in enumerate(cp) for k in p]
-    gs = torch.autograd.grad(loss, [copies[c][i][k] for c, i, k in flat],
-                             allow_unused=True)
-    out: List[Params] = [[{} for _ in cp] for cp in copies]
-    for (c, i, k), g in zip(flat, gs):
-        out[c][i][k] = torch.zeros_like(copies[c][i][k]) if g is None else g
-    return out
+    flat = [_flatten(p) for cp in copies for p in cp]
+    xs = [t for f in flat for t in f]
+    gs = torch.autograd.grad(loss, xs, allow_unused=True)
+    it = iter(torch.zeros_like(x) if g is None else g
+              for x, g in zip(xs, gs))
+    return [[_unflatten(p, it) for p in cp] for cp in copies]
 
 
-def _update(params: Params, g: Dict[str, torch.Tensor], i: int, lr: float,
-            B: int) -> Dict[str, torch.Tensor]:
-    return {k: params[i][k] - lr * (g[k] / B) for k in params[i]}
+def _add(g: Tree, other: Tree) -> Tree:
+    return _map(lambda a, b: a + b, g, other)
+
+
+def _update(params: Params, g: Tree, i: int, lr: float, B: int) -> Tree:
+    return _map(lambda p, gg: p - lr * (gg / B), params[i], g)
 
 
 def reference_sgd_step(model, params: Params, x: torch.Tensor,
@@ -69,7 +99,7 @@ def reference_sgd_step(model, params: Params, x: torch.Tensor,
     loss = stack.sum_loss(stack.apply_segment(p, x, 0, N), y) / x.shape[0]
     (g,) = _grads(loss, [p])
     with torch.no_grad():
-        new = [{k: params[i][k] - lr * g[i][k] for k in params[i]}
+        new = [_map(lambda p, gg: p - lr * gg, params[i], g[i])
                for i in range(N)]
     return new, loss.detach()
 
@@ -142,9 +172,9 @@ def hybrid_sgd_step(model, params: Params, batches: Dict[str, Batch],
         for i in range(N):
             g = g_o[i]
             if i < m_s and b_s:
-                g = {k: g[k] + g_s[i][k] for k in g}
+                g = _add(g, g_s[i])
             if i < m_l and b_l:
-                g = {k: g[k] + g_l[i][k] for k in g}
+                g = _add(g, g_l[i])
             new_params.append(_update(params, g, i, lr, B))
     return new_params, total_loss.detach() / B
 
@@ -255,9 +285,9 @@ def multi_hybrid_sgd_step(model, params: Params, batches: Dict[str, object],
             g = g_o[i]
             for d in range(M):
                 if i < m_s[d] and b_s[d]:
-                    g = {k: g[k] + g_s[d][i][k] for k in g}
+                    g = _add(g, g_s[d][i])
             if i < m_l and b_l:
-                g = {k: g[k] + g_l[i][k] for k in g}
+                g = _add(g, g_l[i])
             new_params.append(_update(params, g, i, lr, B))
     return new_params, total_loss.detach() / B
 

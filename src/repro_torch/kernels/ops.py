@@ -1,9 +1,19 @@
-"""Public wrappers around the port's int8 quantizer kernel.
+"""Public wrappers around the port's kernels, in model layout.
 
+* :func:`flash_attention` — GQA flash attention over ``[B, T, H, hd]``,
+  a ``torch.autograd.Function`` whose backward is the chunked pass over K
+  blocks that consumes the kernel's log-sum-exp.
+* :func:`gla_scan` — the chunked gated linear recurrence over
+  ``[B, T, H, d]``; its backward is the gradient of the plain
+  ``chunked_gla``.
 * :func:`wire_qdq_int8` — the deterministic cut-point wire round trip
   (per-sample rows, round to nearest).
 * :func:`quantize_int8` / :func:`dequantize_int8` — unbiased int8
   compression with stochastic rounding.
+
+The JAX package has no backward Pallas kernel: flash attention's
+backward is jnp code and the GLA backward the VJP of its plain
+recurrence.  So here both backwards are plain PyTorch.
 """
 from __future__ import annotations
 
@@ -11,7 +21,158 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import gla_scan as gs
 from repro_torch.kernels import int8_quant as iq
+from repro_torch.kernels.ref import NEG_INF
+from repro_torch.models.lm.gla import chunked_gla
+
+# ---------------------------------------------------------------------------
+# Flash attention
+# ---------------------------------------------------------------------------
+
+
+def _pick_block(n: int, target: int) -> int:
+    """Largest divisor of n that is <= target."""
+    b = min(target, n)
+    while n % b:
+        b -= 1
+    return b
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Head-major flash attention: the kernel forward, and the chunked
+    backward of ``repro/kernels/ops.py`` (one pass over K blocks of
+    ``_pick_block(S, 512)`` keys, rebuilding each block's probabilities
+    from the saved lse, in f32)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        o, lse = fa.flash_attention_fwd(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        BH, T, hd = q.shape
+        BKV, S, _ = k.shape
+        rep = BH // BKV
+        bk = _pick_block(S, 512)
+        scale = 1.0 / (hd ** 0.5)
+        qf = q.float().reshape(BKV, rep, T, hd)
+        dof = do.float().reshape(BKV, rep, T, hd)
+        of = o.float().reshape(BKV, rep, T, hd)
+        lsef = lse.reshape(BKV, rep, T)
+        delta = (dof * of).sum(dim=-1)                    # [BKV, rep, T]
+        kf, vf = k.float(), v.float()
+        qpos = torch.arange(T, device=q.device)
+        dq = torch.zeros_like(qf)
+        dk = torch.empty_like(kf)
+        dv = torch.empty_like(vf)
+        for j0 in range(0, S, bk):
+            kj, vj = kf[:, j0:j0 + bk], vf[:, j0:j0 + bk]  # [BKV, bk, hd]
+            kpos = j0 + torch.arange(bk, device=q.device)
+            s = torch.einsum("brth,bkh->brtk", qf, kj) * scale
+            mask = torch.ones((T, bk), dtype=torch.bool, device=q.device)
+            if ctx.causal:
+                mask &= qpos[:, None] >= kpos[None, :]
+            if ctx.window > 0:
+                mask &= kpos[None, :] > qpos[:, None] - ctx.window
+            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+            p = torch.exp(s - lsef[..., None])            # [BKV, rep, T, bk]
+            dv[:, j0:j0 + bk] = torch.einsum("brtk,brth->bkh", p, dof)
+            dp = torch.einsum("brth,bkh->brtk", dof, vj)
+            ds = p * (dp - delta[..., None])
+            dq = dq + scale * torch.einsum("brtk,bkh->brth", ds, kj)
+            dk[:, j0:j0 + bk] = scale * torch.einsum("brtk,brth->bkh", ds,
+                                                     qf)
+        return (dq.reshape(BH, T, hd).to(q.dtype), dk.to(k.dtype),
+                dv.to(v.dtype), None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Model layout: q [B, T, H, hd]; k/v [B, S, KV, hd] -> [B, T, H, hd]."""
+    B, T, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    qh = q.transpose(1, 2).contiguous().reshape(B * H, T, hd)
+    kh = k.transpose(1, 2).contiguous().reshape(B * KV, S, hd)
+    vh = v.transpose(1, 2).contiguous().reshape(B * KV, S, hd)
+    o = _FlashAttention.apply(qh, kh, vh, bool(causal), int(window))
+    return o.reshape(B, H, T, hd).transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# GLA scan
+# ---------------------------------------------------------------------------
+
+
+class _GlaScan(torch.autograd.Function):
+    """Head-major GLA: the kernel forward; the backward recomputes the
+    plain ``chunked_gla`` under autograd and returns its gradient.
+
+    Not the step loop of ``ref_gla``, whose VJP the JAX package takes:
+    autograd through a per-step loop keeps every step's state, ``T x BH x
+    dk x dv x 4`` bytes (about 7.5 GB per block at zamba2-7b's shapes),
+    and launches ``T`` steps of small operations.  ``chunked_gla`` is
+    the same function and keeps ``O(T W)`` per head."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, a, chunk: int, normalize: bool):
+        y, S, n = gs.gla_scan_fwd(q, k, v, a, chunk, normalize)
+        ctx.save_for_backward(q, k, v, a)
+        ctx.set_materialize_grads(False)   # Mamba2 drops S and n
+        ctx.chunk, ctx.normalize = chunk, normalize
+        return y, S, n
+
+    @staticmethod
+    def backward(ctx, gy, gS, gn):
+        q, k, v, a = ctx.saved_tensors
+        if gy is None and gS is None and gn is None:
+            return None, None, None, None, None, None
+        ins = [t.detach().requires_grad_(True) for t in (q, k, v, a)]
+        with torch.enable_grad():
+            qm, km, vm, am = (t.unsqueeze(2) for t in ins)  # H = 1
+            y, (S, n) = chunked_gla(qm, km, vm, am, chunk=ctx.chunk,
+                                    normalize=ctx.normalize)
+            outs = [(y.squeeze(2), gy), (S.squeeze(1), gS),
+                    (n.squeeze(1), gn)]
+            outs = [(t, g) for t, g in outs if g is not None]
+            grads = torch.autograd.grad([t for t, _ in outs],
+                                        ins, [g for _, g in outs],
+                                        allow_unused=True)
+        grads = [torch.zeros_like(t) if g is None else g
+                 for t, g in zip(ins, grads)]
+        return (*grads, None, None)
+
+
+def gla_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             log_decay: torch.Tensor, *, chunk: int = 128,
+             normalize: bool = False,
+             initial_state: Optional[Tuple[torch.Tensor,
+                                           torch.Tensor]] = None):
+    """Model layout: q/k [B, T, H, dk]; v [B, T, H, dv];
+    log_decay [B, T, H].  Contract matches ``chunked_gla``; a nonzero
+    ``initial_state`` stays on the plain ``chunked_gla``, as in JAX."""
+    if initial_state is not None:
+        return chunked_gla(q, k, v, log_decay, chunk=chunk,
+                           normalize=normalize, initial_state=initial_state)
+    B, T, H, dk = q.shape
+    dv = v.shape[-1]
+    qh = q.transpose(1, 2).contiguous().reshape(B * H, T, dk)
+    kh = k.transpose(1, 2).contiguous().reshape(B * H, T, dk)
+    vh = v.transpose(1, 2).contiguous().reshape(B * H, T, dv)
+    ah = log_decay.float().transpose(1, 2).contiguous().reshape(B * H, T)
+    y, S, n = _GlaScan.apply(qh, kh, vh, ah, min(chunk, T), bool(normalize))
+    return (y.reshape(B, H, T, dv).transpose(1, 2),
+            (S.reshape(B, H, dk, dv), n.reshape(B, H, dk)))
+
+
+# ---------------------------------------------------------------------------
+# Int8 compression
+# ---------------------------------------------------------------------------
 
 
 def quantize_int8(x: torch.Tensor, generator: Optional[torch.Generator] = None

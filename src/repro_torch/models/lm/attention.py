@@ -1,0 +1,101 @@
+"""Grouped-query self-attention with RoPE and sliding windows.
+
+The port of the training path of :mod:`repro.models.lm.attention`:
+``init_attention``, ``_project_qkv``, the quadratic reference ``mha``
+(the oracle of the flash kernel) and ``self_attention``, whose
+``use_flash`` switch routes onto the CUDA flash-attention kernel.  The
+blocked, cross-attention and decode paths come with serving.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.models.lm.common import (Params, apply_rope,
+                                          truncated_normal_init)
+
+
+def init_attention(generator: torch.Generator, d_model: int, n_heads: int,
+                   n_kv_heads: int, head_dim: int, dtype: torch.dtype,
+                   qkv_bias: bool = False, device=None) -> Params:
+    p = {
+        "wq": truncated_normal_init(generator, (d_model, n_heads * head_dim),
+                                    1.0, dtype, device),
+        "wk": truncated_normal_init(generator,
+                                    (d_model, n_kv_heads * head_dim), 1.0,
+                                    dtype, device),
+        "wv": truncated_normal_init(generator,
+                                    (d_model, n_kv_heads * head_dim), 1.0,
+                                    dtype, device),
+        "wo": truncated_normal_init(generator, (n_heads * head_dim, d_model),
+                                    1.0, dtype, device),
+    }
+    if qkv_bias:
+        for name, width in (("bq", n_heads), ("bk", n_kv_heads),
+                            ("bv", n_kv_heads)):
+            p[name] = torch.zeros((width * head_dim,), dtype=dtype,
+                                  device=device)
+    return p
+
+
+def _project_qkv(p: Params, x: torch.Tensor, kv_src: torch.Tensor,
+                 n_heads: int, n_kv_heads: int, head_dim: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    B, T = x.shape[:2]
+    S = kv_src.shape[1]
+    q = x @ p["wq"]
+    k = kv_src @ p["wk"]
+    v = kv_src @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    return (q.reshape(B, T, n_heads, head_dim),
+            k.reshape(B, S, n_kv_heads, head_dim),
+            v.reshape(B, S, n_kv_heads, head_dim))
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+        window: int = 0) -> torch.Tensor:
+    """Reference attention.  q: [B,T,H,hd]; k/v: [B,S,KV,hd].
+
+    ``window > 0`` = sliding window (each query sees the previous
+    ``window`` keys inclusive).  Grouped einsum: no materialized
+    head-repeat of K/V."""
+    B, T, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    rep = H // KV
+    qf = (q.float() / math.sqrt(hd)).reshape(B, T, KV, rep, hd)
+    logits = torch.einsum("btkrh,bskh->bktrs", qf, k.float())
+    qpos = torch.arange(T, device=q.device)
+    kpos = torch.arange(S, device=q.device)
+    mask = torch.ones((T, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos[:, None] >= kpos[None, :]
+    if window > 0:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    logits = torch.where(mask[None, None, :, None, :], logits,
+                         torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bktrs,bskh->btkrh", probs, v.float())
+    return out.reshape(B, T, H, hd).to(q.dtype)
+
+
+def self_attention(p: Params, x: torch.Tensor, *, n_heads: int,
+                   n_kv_heads: int, head_dim: int, causal: bool,
+                   rope_theta: float = 0.0, window: int = 0,
+                   positions: Optional[torch.Tensor] = None,
+                   use_flash: bool = False) -> torch.Tensor:
+    B, T, _ = x.shape
+    q, k, v = _project_qkv(p, x, x, n_heads, n_kv_heads, head_dim)
+    if rope_theta > 0:
+        pos = positions if positions is not None \
+            else torch.arange(T, device=x.device)
+        q = apply_rope(q, pos, rope_theta)
+        k = apply_rope(k, pos, rope_theta)
+    if use_flash:
+        from repro_torch.kernels import ops as kops
+        out = kops.flash_attention(q, k, v, causal=causal, window=window)
+    else:
+        out = mha(q, k, v, causal=causal, window=window)
+    return out.reshape(B, T, n_heads * head_dim) @ p["wo"]

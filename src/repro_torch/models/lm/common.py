@@ -1,0 +1,116 @@
+"""Shared building blocks for the LM model zoo (PyTorch, functional).
+
+The port of :mod:`repro.models.lm.common`.  Conventions are the JAX
+package's: params are nested dicts of tensors, activations are
+``[B, T, D]``, the compute dtype is configurable (bf16 target) and
+softmax/normalization statistics are always f32.  The sharding hints of
+the JAX module are no-ops without a mesh and are dropped here.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+Params = Dict[str, Any]
+
+
+def truncated_normal_init(generator: torch.Generator, shape: Tuple[int, ...],
+                          scale: float, dtype: torch.dtype,
+                          device=None) -> torch.Tensor:
+    """A standard normal truncated to [-2, 2], times ``scale /
+    sqrt(fan_in)`` (``fan_in = shape[0]`` for matrices), drawn in f32 on
+    the generator's device and cast to ``dtype`` on ``device``."""
+    fan_in = shape[0] if len(shape) >= 2 else 1
+    t = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return (t * (scale / math.sqrt(fan_in))).to(device=device, dtype=dtype)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6
+             ) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    var = (x * x).mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + weight.float())).to(dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: [B, T, H, hd]; positions: [T] or [B, T] (absolute)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)          # [hd/2]
+    angles = positions.float()[..., None] * freqs
+    angles = angles[None, :, None, :] if positions.dim() == 1 \
+        else angles[:, :, None, :]
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def init_swiglu(generator: torch.Generator, d_model: int, d_ff: int,
+                dtype: torch.dtype, device=None) -> Params:
+    return {
+        "w_gate": truncated_normal_init(generator, (d_model, d_ff), 1.0,
+                                        dtype, device),
+        "w_up": truncated_normal_init(generator, (d_model, d_ff), 1.0,
+                                      dtype, device),
+        "w_down": truncated_normal_init(generator, (d_ff, d_model), 1.0,
+                                        dtype, device),
+    }
+
+
+def apply_swiglu(p: Params, x: torch.Tensor) -> torch.Tensor:
+    g = F.silu((x @ p["w_gate"]).float()).to(x.dtype)
+    return (g * (x @ p["w_up"])) @ p["w_down"]
+
+
+def apply_geglu(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Gated-GELU MLP (gemma-style); same param layout as SwiGLU."""
+    g = F.gelu((x @ p["w_gate"]).float(), approximate="tanh").to(x.dtype)
+    return (g * (x @ p["w_up"])) @ p["w_down"]
+
+
+def init_gelu_mlp(generator: torch.Generator, d_model: int, d_ff: int,
+                  dtype: torch.dtype, device=None) -> Params:
+    return {
+        "w_up": truncated_normal_init(generator, (d_model, d_ff), 1.0,
+                                      dtype, device),
+        "b_up": torch.zeros((d_ff,), dtype=dtype, device=device),
+        "w_down": truncated_normal_init(generator, (d_ff, d_model), 1.0,
+                                        dtype, device),
+        "b_down": torch.zeros((d_model,), dtype=dtype, device=device),
+    }
+
+
+def apply_gelu_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    h = F.gelu((x @ p["w_up"] + p["b_up"]).float(),
+               approximate="tanh").to(x.dtype)
+    return h @ p["w_down"] + p["b_down"]

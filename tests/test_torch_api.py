@@ -151,3 +151,47 @@ def test_profile_only_plan_cannot_execute():
     assert p.schedule.b_o + p.schedule.b_s + p.schedule.b_l == 16
     with pytest.raises(ValueError, match="without a model"):
         p.step_fn(device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# The LM fleet: the zamba (gla) and dense (attention) stacks of
+# benchmarks/fig_lm_fleet.py at its T=512, B=64.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("wire", ["none", "int8"])
+@pytest.mark.parametrize("m", [1, 4])
+@pytest.mark.parametrize("family", ["gla", "attention"])
+def test_lm_plan_equals_jax(family, m, wire):
+    from benchmarks.fig_lm_fleet import BATCH, CONFIGS, SEQ_LEN
+    from repro.models.lm.layerstack import lm_layerstack as jax_lm_stack
+    from repro_torch.models.lm.fleet_configs import FLEET_ATTN, FLEET_GLA
+    from repro_torch.models.lm.layerstack import lm_layerstack
+    tcfg = {"gla": FLEET_GLA, "attention": FLEET_ATTN}[family]
+    jp = japi.plan(jax_lm_stack(CONFIGS[family], SEQ_LEN),
+                   japi.Fleet.lm_default(m=m, wire=wire), BATCH)
+    tp = tapi.plan(lm_layerstack(tcfg, SEQ_LEN, backend="cuda"),
+                   tapi.Fleet.lm_default(m=m, wire=wire), BATCH)
+    assert repr(tp.schedule) == repr(jp.schedule)
+    assert tp.t_total == jp.t_total
+    assert tp.t_period == jp.t_period
+    assert repr(tp.breakdown) == repr(jp.breakdown)
+    np.testing.assert_array_equal(tp.profile.MO, jp.profile.MO)
+    np.testing.assert_array_equal(tp.profile.MG, jp.profile.MG)
+
+
+def test_lm_step_fn_runs_the_star_engine_on_the_cpu():
+    """``Plan.step_fn`` on an LM stack is the star engine on the plan's
+    schedule (bitwise), and ``init_params``/``dummy_batch`` are seeded."""
+    from repro_torch.core import hybrid_step as ths
+    from tests.test_torch_lm import flat, stacks
+    _, stack = stacks("cuda")
+    p = tapi.plan(stack, tapi.Fleet.lm_default(m=4, wire="int8"), 8)
+    params = p.init_params(seed=1, device="cpu")
+    x, y = stack.dummy_batch(torch.Generator().manual_seed(2), 8)
+    new, loss = p.step_fn(lr=0.01, device="cpu")(params, x, y)
+    want, wloss = ths.multi_hybrid_step_from_schedule(
+        stack, params, x, y, p.schedule, 0.01, wire="int8")
+    assert torch.isfinite(loss) and torch.equal(loss, wloss)
+    assert all(torch.equal(a, b) for q, r in zip(new, want)
+               for a, b in zip(flat(q), flat(r)))

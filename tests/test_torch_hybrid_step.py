@@ -12,7 +12,9 @@
   scale step.  Measured on these inputs (no rounding flipped): loss
   within 1.5e-6 and params within 6e-8 abs, under both wires;
 * the M=1 star step is bitwise equal to the triple step, under both
-  wires.
+  wires;
+* the engine's walk over nested param dicts gives the results of the
+  flat ``{"w", "b"}`` walk it replaced, bit for bit.
 """
 from __future__ import annotations
 
@@ -173,3 +175,49 @@ def test_split_batch_rejects_wrong_batch():
                                        1, 1))
     with pytest.raises(ValueError):
         ths.multi_split_batch(x, y, MultiSchedule(**STAR))
+
+
+def _flat_leaves(params, n):
+    return [{k: v.detach().requires_grad_(True) for k, v in p.items()}
+            for p in params[:n]]
+
+
+def _flat_grads(loss, copies):
+    flat = [(c, i, k) for c, cp in enumerate(copies)
+            for i, p in enumerate(cp) for k in p]
+    gs = torch.autograd.grad(loss, [copies[c][i][k] for c, i, k in flat],
+                             allow_unused=True)
+    out = [[{} for _ in cp] for cp in copies]
+    for (c, i, k), g in zip(flat, gs):
+        out[c][i][k] = torch.zeros_like(copies[c][i][k]) if g is None else g
+    return out
+
+
+@pytest.mark.parametrize("wire", ["none", "int8"])
+@pytest.mark.parametrize("topology", ["triple", "star"])
+def test_nested_walk_keeps_flat_results_bitwise(topology, wire, monkeypatch):
+    """The engine as it was for flat ``{"w", "b"}`` dicts (its leaf,
+    gradient, sum and update walks, verbatim) against the nested walk."""
+    jm, tm = model_pair("alexnet_narrow")
+    params = params_from_numpy(jax_params(jm, 14))
+    x, y = (torch.from_numpy(a) for a in batch(jm, 12, 15))
+    if topology == "triple":
+        sched = Schedule(*TRIPLE["args"])
+        run = ths.hybrid_step_from_schedule
+    else:
+        sched = MultiSchedule(**STAR)
+        run = ths.multi_hybrid_step_from_schedule
+    nested, nl = run(tm, params, x, y, sched, 0.05, wire=wire)
+    ref_nested, rl = ths.reference_sgd_step(tm, params, x, y, 0.05)
+    monkeypatch.setattr(ths, "_leaves", _flat_leaves)
+    monkeypatch.setattr(ths, "_grads", _flat_grads)
+    monkeypatch.setattr(ths, "_add", lambda g, o: {k: g[k] + o[k] for k in g})
+    monkeypatch.setattr(ths, "_update", lambda p, g, i, lr, B: {
+        k: p[i][k] - lr * (g[k] / B) for k in p[i]})
+    monkeypatch.setattr(ths, "_map", lambda fn, t, *r: {
+        k: fn(v, *(q[k] for q in r)) for k, v in t.items()})
+    flat, fl = run(tm, params, x, y, sched, 0.05, wire=wire)
+    ref_flat, rfl = ths.reference_sgd_step(tm, params, x, y, 0.05)
+    assert torch.equal(nl, fl) and torch.equal(rl, rfl)
+    assert_params_equal(nested, flat)
+    assert_params_equal(ref_nested, ref_flat)

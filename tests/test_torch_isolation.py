@@ -1,6 +1,7 @@
 """The port stands alone: ``src/repro_torch/`` and ``chip_smoke.py``
 import neither ``jax`` nor anything of the ``repro`` package (not even
-its numpy-only modules — the port keeps its own copies)."""
+its numpy-only modules — the port keeps its own copies), nor
+``ml_dtypes`` (bf16 crosses the package boundary as raw bits)."""
 from __future__ import annotations
 
 import ast
@@ -14,7 +15,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _forbidden(module: str) -> bool:
@@ -48,6 +49,7 @@ def test_port_has_files_to_scan():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert "src/repro_torch/api.py" in names
     assert "src/repro_torch/core/hybrid_step.py" in names
+    assert "src/repro_torch/models/lm/layerstack.py" in names
     assert (ROOT / "chip_smoke.py").exists()
 
 
@@ -64,8 +66,12 @@ def test_importing_the_port_loads_no_jax_or_repro():
         "import sys\n"
         "import repro_torch.api, repro_torch.core.hybrid_step\n"
         "import repro_torch.kernels.ops, repro_torch.convert\n"
+        "import repro_torch.models.lm.layerstack\n"
+        "import repro_torch.configs.zamba2_7b\n"
+        "import repro_torch.models.lm.fleet_configs\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
-        "'repro') or m.startswith(('jax.', 'jaxlib.', 'repro.')))\n"
+        "'repro', 'ml_dtypes') or m.startswith(('jax.', 'jaxlib.', "
+        "'repro.', 'ml_dtypes.')))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
