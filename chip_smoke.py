@@ -7,14 +7,17 @@ Phases (every one that fails exits non-zero; there is no CPU path):
 1. Card: ``nvidia-smi`` name and power limit; TF32 off for cuDNN and
    matmul, so f32 means f32.
 2. Build: every CUDA source under ``src/repro_torch/kernels/csrc/`` with
-   ``nvcc`` (one process per source, all at once).
+   ``nvcc`` (one process per source, all at once); the HMMA (tensor-core)
+   instructions of each ``flash_fwd`` instantiation, by ``cuobjdump
+   -sass``, beside its registers and spills: every bf16 one must have
+   some.
 3. Kernels vs their plain versions, on the card, at the main paths'
    shapes and a few more: the int8 quantizer bitwise; flash attention
    and the GLA scan within the ``TOL`` rule of tests/test_kernel_oracle.py
    (``atol + ulps * ulp`` in the storage dtype).  Times from CUDA events
    over CUDA-graph replays (device time, L2 warm); the library time is
    one PyTorch call computing the same function, where there is one
-   (``scaled_dot_product_attention`` for causal attention).
+   (``scaled_dot_product_attention`` for attention without a window).
 4. AlexNet 224x224 at full width, B=64, int8 wire: ``Fleet.from_table2``
    -> ``plan`` -> ``Plan.init_params`` -> ``Plan.step_fn`` on the M=1
    triple and the M=4 star; ``wire="none"`` on the same cuts against
@@ -41,6 +44,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -110,6 +114,51 @@ def graph_ms(torch, fn, reps: int = 10, trials: int = 25) -> float:
         times.append(s.elapsed_time(e) / reps)
     del g
     return statistics.median(times)
+
+
+def tensor_core_use(build, log: str) -> dict:
+    """HMMA instructions in each ``flash_fwd`` instantiation of the built
+    flash library (``cuobjdump -sass``), beside the registers and spill
+    bytes ``ptxas -v`` reported for it.  Fails unless every bf16
+    instantiation has HMMA instructions."""
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run(
+        [str(tool), "-sass", str(build._target("flash_attention"))],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+
+    def label(symbol):
+        m = re.search(r"(flash_fwd_\w+?)ILi(\d+)E", symbol)
+        return f"{m.group(1)}<{m.group(2)}>" if m else None
+
+    rows, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = label(m.group(1))
+            if fn:
+                rows[fn] = {"hmma": 0}
+        elif fn and re.search(r"\bHMMA\b", line):
+            rows[fn]["hmma"] += 1
+    for line in log.splitlines():
+        m = re.search(r"entry function '(\S+)'", line)
+        if m:
+            fn = label(m.group(1))
+        elif fn in rows:
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                rows[fn]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                rows[fn]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+    for fn, r in sorted(rows.items()):
+        print(f"  {fn:22s} HMMA {r['hmma']:5d}  registers "
+              f"{r.get('registers')}  spill bytes {r.get('spill_bytes')}")
+    bf16 = [fn for fn in rows if "bf16" in fn]
+    if not bf16 or any(rows[fn]["hmma"] == 0 for fn in bf16):
+        fail(f"a bf16 flash_fwd instantiation has no HMMA instruction: "
+             f"{rows}")
+    return rows
 
 
 def bound(nbytes: float, flops: float, flop_rate: float) -> tuple:
@@ -211,14 +260,23 @@ def attention_pairs(T: int, S: int, causal: bool, window: int) -> int:
     return n
 
 
-# (name, BH, BKV, T, hd, dtype, causal, window)
+# (name, BH, BKV, T, S, hd, dtype, causal, window).  bf16 runs on the
+# tensor-core kernel, f32 on the CUDA-core one; the bf16 edge cases are
+# the ragged T, the non-causal window and T != S (no tile skipped).
 FLASH_CASES = (
-    ("fleet_gla_64x8_512_64", 64 * 8, 64 * 8, 512, 64, "bf16", True, 0),
-    ("zamba2_7b_8x32_512_112", 8 * 32, 8 * 32, 512, 112, "bf16", True, 0),
-    ("gqa_rep2_64x8_512_64", 64 * 8, 64 * 4, 512, 64, "bf16", True, 0),
-    ("window128_16x8_512_128", 16 * 8, 16 * 8, 512, 128, "bf16", True, 128),
-    ("f32_ragged_32_300_64", 32, 16, 300, 64, "f32", True, 0),
-    ("f32_noncausal_w64_16_200_112", 16, 16, 200, 112, "f32", False, 64),
+    ("fleet_gla_64x8_512_64", 64 * 8, 64 * 8, 512, 512, 64, "bf16", True, 0),
+    ("zamba2_7b_8x32_512_112", 8 * 32, 8 * 32, 512, 512, 112, "bf16", True,
+     0),
+    ("gqa_rep2_64x8_512_64", 64 * 8, 64 * 4, 512, 512, 64, "bf16", True, 0),
+    ("window128_16x8_512_128", 16 * 8, 16 * 8, 512, 512, 128, "bf16", True,
+     128),
+    ("f32_ragged_32_300_64", 32, 16, 300, 300, 64, "f32", True, 0),
+    ("f32_noncausal_w64_16_200_112", 16, 16, 200, 200, 112, "f32", False,
+     64),
+    ("bf16_ragged_32_300_64", 32, 16, 300, 300, 64, "bf16", True, 0),
+    ("bf16_noncausal_w64_16_200_112", 16, 16, 200, 200, 112, "bf16", False,
+     64),
+    ("bf16_cross_16_128x384_128", 16, 8, 128, 384, 128, "bf16", False, 0),
 )
 
 
@@ -228,11 +286,11 @@ def check_flash(torch, fa, ref) -> dict:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     rows = {}
-    for name, BH, BKV, T, hd, dt, causal, window in FLASH_CASES:
+    for name, BH, BKV, T, S, hd, dt, causal, window in FLASH_CASES:
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
         q = torch.randn(BH, T, hd, generator=g, device=dev).to(dtype)
-        k = torch.randn(BKV, T, hd, generator=g, device=dev).to(dtype)
-        v = torch.randn(BKV, T, hd, generator=g, device=dev).to(dtype)
+        k = torch.randn(BKV, S, hd, generator=g, device=dev).to(dtype)
+        v = torch.randn(BKV, S, hd, generator=g, device=dev).to(dtype)
         o, lse = fa.flash_attention_fwd(q, k, v, causal, window)
         o_r, lse_r = ref.ref_flash_attention(q, k, v, causal=causal,
                                              window=window)
@@ -241,17 +299,17 @@ def check_flash(torch, fa, ref) -> dict:
         ok_l, err_l, ex_l = tol_check(torch, "flash_lse", lse, lse_r, dtype)
         rate = H100_BF16_FLOP_PER_S if dtype == torch.bfloat16 \
             else H100_F32_FLOP_PER_S
-        nbytes = (2 * BH * T * hd + 2 * BKV * T * hd) * q.element_size() \
+        nbytes = (2 * BH * T * hd + 2 * BKV * S * hd) * q.element_size() \
             + 4 * BH * T
-        flops = 4.0 * hd * BH * attention_pairs(T, T, causal, window)
+        flops = 4.0 * hd * BH * attention_pairs(T, S, causal, window)
         bnd, by = bound(nbytes, flops, rate)
-        heavy = BH * T * T > 2 ** 26
+        heavy = BH * T * S > 2 ** 26
         library = None
-        if causal and window == 0:
+        if window == 0:     # SDPA's causal mask is top-left, as ours
             qs, ks, vs = q[None], k[None], v[None]
             library = graph_ms(torch, lambda: F.scaled_dot_product_attention(
-                qs, ks, vs, is_causal=True, enable_gqa=BH != BKV))
-        row = {"case": name, "shape": {"q": [BH, T, hd], "kv": [BKV, T, hd]},
+                qs, ks, vs, is_causal=causal, enable_gqa=BH != BKV))
+        row = {"case": name, "shape": {"q": [BH, T, hd], "kv": [BKV, S, hd]},
                "dtype": str(dtype), "causal": causal, "window": window,
                "ok": ok_o and ok_l, "max_abs_err": max(err_o, err_l),
                "o_err": err_o, "lse_err": err_l,
@@ -730,6 +788,8 @@ def main() -> int:
         for line in rep["log"].splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}")
+    print("flash_attention tensor-core use (cuobjdump -sass):")
+    tensor_cores = tensor_core_use(_build, built["flash_attention"]["log"])
 
     # 3. kernels vs plain versions
     print("int8_quant vs plain version (bitwise):")
@@ -779,6 +839,7 @@ def main() -> int:
         "fleet_gla": {str(m): {k: v for k, v in r.items()}
                       for m, r in lm_runs.items()},
         "zamba2_7b": z7, "launches": paths,
+        "flash_tensor_cores": tensor_cores,
         "quantizer_cases": list(qcases.values()),
         "flash_cases": list(fcases.values()),
         "gla_cases": list(gcases.values())}, default=str))

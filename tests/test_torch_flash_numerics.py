@@ -1,0 +1,253 @@
+"""Rounding points of the bf16 tensor-core flash kernel, checked on the CPU.
+
+``csrc/flash_attention.cu``'s ``flash_fwd_bf16`` cannot run here, so this
+file emulates where it rounds and holds the result against the JAX
+package's reference (``repro.kernels.ref.ref_flash_attention``) at the
+bf16 ``flash_o`` / ``flash_lse`` rule of tests/test_kernel_oracle.py
+(``atol + ulps * ulp_bf16(|want|)``), the rule ``chip_smoke.py`` holds
+the kernel to on the card.  The emulation (a test helper, not a plain
+version of the port) follows the kernel:
+
+* 64-row query tiles, 64-key tiles, and the kernel's tile-skip rule;
+* scores in f32 from bf16 inputs (each product is exact in f32), left
+  unscaled: ``p = 2^((s - m) * scale * log2 e)`` and
+  ``lse = m * scale + log l``, with ``m`` the running max of the
+  unscaled scores and masked scores at -1e30;
+* online max and sum in f32, ``l`` summing the f32 ``p``;
+* ``p`` rounded to TF32 (``cvt.rna``) as the A operand of ``P V``, with
+  f32 accumulation: rounded to bf16 instead, it misses the bf16
+  ``flash_o`` allowance at T=512 (by up to 1.5x here), which the last
+  test pins;
+* ``o / max(l, 1e-30)`` rounded to bf16, ``lse`` in f32.
+
+With ``p`` left in f32 and f32 inputs, the same emulation must meet the
+f32 rule, which checks its tiling and masking apart from the rounding.
+Each case records its worst error as a fraction of the allowance
+(``o_err_over_tol``, ``lse_err_over_tol``, and ``o`` with ``p`` rounded
+to bf16 or kept in f32 instead); ``-s`` prints them.
+"""
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from repro.kernels import ref as jref
+from tests.test_kernel_oracle import TOL, _ulp, assert_oracle_close
+
+jax.config.update("jax_platform_name", "cpu")
+
+TILE = 64
+NEG_INF = -1e30
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> bf16 -> f32, round to nearest even (``cvt.rn.bf16x2.f32``)."""
+    return x.to(torch.bfloat16).float()
+
+
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> TF32 (10 mantissa bits), round to nearest with ties away
+    from zero (``cvt.rna.tf32.f32``), for the finite ``p >= 0`` here."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def emulate_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool, window: int, p_round=round_tf32):
+    """The kernel's arithmetic: q ``[BH, T, hd]``, k/v ``[BKV, S, hd]``
+    (f32 tensors holding the kernel's input values).  Returns
+    ``(o f32 [BH, T, hd] before the final rounding, lse f32 [BH, T])``."""
+    BH, T, hd = q.shape
+    BKV, S, _ = k.shape
+    rep = BH // BKV
+    scale = 1.0 / (hd ** 0.5)
+    c2 = torch.tensor(scale * 1.4426950408889634, dtype=torch.float32)
+    kf = k.repeat_interleave(rep, 0)
+    vf = v.repeat_interleave(rep, 0)
+    o = torch.empty_like(q)
+    lse = torch.empty((BH, T), dtype=torch.float32)
+    for q0 in range(0, T, TILE):
+        rows = torch.arange(q0, min(q0 + TILE, T))
+        lo, hi = 0, -(-S // TILE)
+        if T == S:
+            if causal:
+                hi = min(hi, (min(q0 + TILE, T) - 1) // TILE + 1)
+            if window > 0:
+                lo = max(0, q0 - window + 1) // TILE
+        m = torch.full((BH, len(rows)), NEG_INF)
+        l = torch.zeros((BH, len(rows)))
+        acc = torch.zeros((BH, len(rows), hd))
+        for kt in range(lo, hi):
+            keys = torch.arange(kt * TILE, min(kt * TILE + TILE, S))
+            s = q[:, rows] @ kf[:, keys].transpose(1, 2)
+            keep = torch.ones((len(rows), len(keys)), dtype=torch.bool)
+            if causal:
+                keep &= rows[:, None] >= keys[None, :]
+            if window > 0:
+                keep &= keys[None, :] > rows[:, None] - window
+            s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+            mn = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp2((m - mn) * c2)
+            p = torch.exp2((s - mn[..., None]) * c2)
+            l = alpha * l + p.sum(-1)
+            if p_round is not None:
+                p = p_round(p)
+            acc = acc * alpha[..., None] + p @ vf[:, keys]
+            m = mn
+        safe = l.clamp_min(1e-30)
+        o[:, rows] = acc / safe[..., None]
+        lse[:, rows] = torch.where(m == NEG_INF, m, m * scale) + \
+            torch.log(safe)
+    return o, lse
+
+
+def over_tol(kind: str, got: np.ndarray, want, dtype) -> float:
+    """Worst ``|got - want|`` as a fraction of the TOL allowance."""
+    atol, ulps = TOL[(kind, jnp.dtype(dtype).name)]
+    w = np.asarray(want, np.float32)
+    err = np.abs(np.asarray(got, np.float32) - w)
+    return float(np.max(err / (atol + ulps * _ulp(w, dtype))))
+
+
+# (BH, BKV, T, S, hd, causal, window): the main paths' widths at T=512,
+# then the edges chip_smoke.py drives in bf16 on the card.
+CASES = [
+    pytest.param(4, 4, 512, 512, 64, True, 0, id="causal_512_hd64"),
+    pytest.param(4, 4, 512, 512, 112, True, 0, id="causal_512_hd112"),
+    pytest.param(4, 2, 512, 512, 64, True, 0, id="gqa_causal_512_hd64"),
+    pytest.param(2, 2, 512, 512, 128, True, 128, id="window128_512_hd128"),
+    pytest.param(4, 2, 300, 300, 64, True, 0, id="ragged_300_hd64"),
+    pytest.param(2, 2, 200, 200, 112, False, 64, id="noncausal_w64_hd112"),
+    pytest.param(4, 2, 128, 384, 128, False, 0, id="cross_128x384_hd128"),
+]
+
+
+def inputs(BH, BKV, T, S, hd, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((BH, T, hd)).astype(np.float32),
+            rng.standard_normal((BKV, S, hd)).astype(np.float32),
+            rng.standard_normal((BKV, S, hd)).astype(np.float32))
+
+
+@pytest.mark.parametrize("BH,BKV,T,S,hd,causal,window", CASES)
+def test_bf16_design_meets_oracle_tol(BH, BKV, T, S, hd, causal, window,
+                                      record_property):
+    q, k, v = (jnp.asarray(a).astype(jnp.bfloat16)
+               for a in inputs(BH, BKV, T, S, hd, seed=T + S + hd))
+    want_o, want_l = jref.ref_flash_attention(q, k, v, causal=causal,
+                                              window=window)
+    tq, tk, tv = (torch.from_numpy(np.asarray(a, np.float32))
+                  for a in (q, k, v))
+    o, lse = emulate_kernel(tq, tk, tv, causal, window)
+    o = o.to(torch.bfloat16).float().numpy()
+    assert_oracle_close("flash_o", o, want_o, jnp.bfloat16)
+    assert_oracle_close("flash_lse", lse.numpy(), want_l, jnp.bfloat16)
+    frac_o = over_tol("flash_o", o, want_o, jnp.bfloat16)
+    frac_l = over_tol("flash_lse", lse.numpy(), want_l, jnp.bfloat16)
+    record_property("o_err_over_tol", frac_o)
+    record_property("lse_err_over_tol", frac_l)
+    # The alternatives, for the record: p rounded to bf16, p kept in f32.
+    alt = {}
+    for name, p_round in (("bf16_p", round_bf16), ("f32_p", None)):
+        o_alt, _ = emulate_kernel(tq, tk, tv, causal, window,
+                                  p_round=p_round)
+        alt[name] = over_tol("flash_o", o_alt.to(torch.bfloat16).float()
+                             .numpy(), want_o, jnp.bfloat16)
+        record_property(f"o_err_over_tol_{name}", alt[name])
+    print(f"o {frac_o:.4f} of tol (bf16 p {alt['bf16_p']:.4f}, f32 p "
+          f"{alt['f32_p']:.4f}), lse {frac_l:.4f} of tol")
+
+
+@pytest.mark.parametrize("BH,BKV,T,S,hd,causal,window", CASES)
+def test_emulated_tiling_meets_f32_tol(BH, BKV, T, S, hd, causal, window):
+    q, k, v = inputs(BH, BKV, T, S, hd, seed=T + S + hd + 1)
+    want_o, want_l = jref.ref_flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window)
+    o, lse = emulate_kernel(torch.from_numpy(q), torch.from_numpy(k),
+                            torch.from_numpy(v), causal, window,
+                            p_round=None)
+    assert_oracle_close("flash_o", o.numpy(), want_o, jnp.float32)
+    assert_oracle_close("flash_lse", lse.numpy(), want_l, jnp.float32)
+
+
+def test_bf16_p_misses_the_tolerance_where_tf32_p_meets_it():
+    """Why the kernel runs P V in TF32: with p rounded to bf16 (8
+    significant bits) the bf16 ``flash_o`` allowance is exceeded at the
+    main paths' T=512, with TF32 (11 bits) it is met with room."""
+    BH, BKV, T, S, hd = 4, 4, 512, 512, 112
+    q, k, v = (jnp.asarray(a).astype(jnp.bfloat16)
+               for a in inputs(BH, BKV, T, S, hd, seed=T + S + hd))
+    want_o, _ = jref.ref_flash_attention(q, k, v, causal=True)
+    tq, tk, tv = (torch.from_numpy(np.asarray(a, np.float32))
+                  for a in (q, k, v))
+    frac = {}
+    for name, p_round in (("bf16", round_bf16), ("tf32", round_tf32)):
+        o, _ = emulate_kernel(tq, tk, tv, True, 0, p_round=p_round)
+        frac[name] = over_tol("flash_o", o.to(torch.bfloat16).float().numpy(),
+                              want_o, jnp.bfloat16)
+    assert frac["bf16"] > 1.0 and frac["tf32"] < 0.5, frac
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py's side of the check (its CPU-testable helpers)
+# ---------------------------------------------------------------------------
+
+def test_chip_smoke_holds_kernels_to_the_oracle_tol():
+    assert chip_smoke.TOL == TOL
+
+
+def test_chip_smoke_bf16_cases_reach_the_kernel_edges():
+    bf16 = [c for c in chip_smoke.FLASH_CASES if c[6] == "bf16"]
+    assert any(T % TILE and causal for _, _, _, T, _, _, _, causal, _ in bf16)
+    assert any(not causal and window > 0
+               for *_, causal, window in bf16)
+    assert any(T != S and not causal and window == 0
+               for _, _, _, T, S, _, _, causal, window in bf16)
+    assert {hd for *_, hd, _, _, _ in bf16} == {64, 112, 128}
+
+
+@pytest.mark.parametrize("T,S,causal,window,want", [
+    (4, 4, True, 0, 10), (128, 384, False, 0, 128 * 384),
+    (6, 6, False, 2, 26), (6, 6, True, 3, 15)])
+def test_chip_smoke_counts_unmasked_pairs(T, S, causal, window, want):
+    assert chip_smoke.attention_pairs(T, S, causal, window) == want
+
+
+SASS = """
+        Function : _ZN12_GLOBAL__N_114flash_fwd_bf16ILi64EEEvPK13__nv_bfloat16
+        /*0010*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        /*0020*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;
+        Function : _ZN12_GLOBAL__N_113flash_fwd_f32ILi64EEEvPKfS2_S2_PfS3_
+        /*0010*/                   FFMA R1, R2, R3, R1 ;
+"""
+PTXAS = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114flash_fwd_bf16ILi64EEEvPK13__nv_bfloat16' for 'sm_90a'
+    0 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+"""
+
+
+def test_chip_smoke_counts_hmma_per_instantiation(monkeypatch):
+    class Done:
+        stdout = SASS
+
+    class Build:
+        _nvcc = staticmethod(lambda: "/cuda/bin/nvcc")
+        _target = staticmethod(lambda name: f"/build/lib{name}.so")
+
+    calls = []
+    monkeypatch.setattr(chip_smoke.subprocess, "run",
+                        lambda cmd, **kw: calls.append(cmd) or Done())
+    rows = chip_smoke.tensor_core_use(Build, PTXAS)
+    assert calls == [["/cuda/bin/cuobjdump", "-sass",
+                      "/build/libflash_attention.so"]]
+    assert rows == {"flash_fwd_bf16<64>": {"hmma": 2, "registers": 128,
+                                           "spill_bytes": 12},
+                    "flash_fwd_f32<64>": {"hmma": 0}}
+    Done.stdout = SASS.replace("HMMA", "FFMA")
+    with pytest.raises(SystemExit):
+        chip_smoke.tensor_core_use(Build, PTXAS)
