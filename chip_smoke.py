@@ -8,9 +8,9 @@ Phases (every one that fails exits non-zero; there is no CPU path):
    matmul, so f32 means f32.
 2. Build: every CUDA source under ``src/repro_torch/kernels/csrc/`` with
    ``nvcc`` (one process per source, all at once); the HMMA (tensor-core)
-   instructions of each ``flash_fwd`` instantiation, by ``cuobjdump
-   -sass``, beside its registers and spills: every bf16 one must have
-   some.
+   instructions of each ``flash_fwd`` and ``gla_fwd`` instantiation, by
+   ``cuobjdump -sass``, beside its registers and spills: every
+   tensor-core (``*_bf16``) one must have some.
 3. Kernels vs their plain versions, on the card, at the main paths'
    shapes and a few more: the int8 quantizer bitwise; flash attention
    and the GLA scan within the ``TOL`` rule of tests/test_kernel_oracle.py
@@ -116,25 +116,36 @@ def graph_ms(torch, fn, reps: int = 10, trials: int = 25) -> float:
     return statistics.median(times)
 
 
-def tensor_core_use(build, log: str) -> dict:
-    """HMMA instructions in each ``flash_fwd`` instantiation of the built
-    flash library (``cuobjdump -sass``), beside the registers and spill
-    bytes ``ptxas -v`` reported for it.  Fails unless every bf16
-    instantiation has HMMA instructions."""
+def kernel_label(symbol: str):
+    """``base<args>`` of a mangled ``flash_fwd*`` or ``gla_fwd*`` template
+    instance (``gla_fwd_bf16<64, 64>``, ``gla_fwd<bf16, 64>``), else
+    None."""
+    m = re.search(r"((?:flash|gla)_fwd\w*?)I(.*?)EE", symbol)
+    if not m:
+        return None
+    types = {"f": "float", "13__nv_bfloat16": "bf16"}
+    args = [t.group(1) or types[t.group(0)] for t in
+            re.finditer(r"Li(\d+)|13__nv_bfloat16|f", m.group(2))]
+    return f"{m.group(1)}<{', '.join(args)}>"
+
+
+def tensor_core_use(build, log: str, name: str = "flash_attention") -> dict:
+    """HMMA instructions in each kernel instantiation of the built
+    library ``name`` (``cuobjdump -sass``), beside the registers and
+    spill bytes ``ptxas -v`` reported for it.  Fails unless every
+    tensor-core instantiation (``*_bf16<...>``) has HMMA instructions;
+    the CUDA-core ones (f32, and bf16 shapes the tensor-core kernel
+    does not take) need none."""
     tool = Path(build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run(
-        [str(tool), "-sass", str(build._target("flash_attention"))],
+        [str(tool), "-sass", str(build._target(name))],
         capture_output=True, text=True, timeout=300, check=True).stdout
-
-    def label(symbol):
-        m = re.search(r"(flash_fwd_\w+?)ILi(\d+)E", symbol)
-        return f"{m.group(1)}<{m.group(2)}>" if m else None
 
     rows, fn = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            fn = label(m.group(1))
+            fn = kernel_label(m.group(1))
             if fn:
                 rows[fn] = {"hmma": 0}
         elif fn and re.search(r"\bHMMA\b", line):
@@ -142,7 +153,7 @@ def tensor_core_use(build, log: str) -> dict:
     for line in log.splitlines():
         m = re.search(r"entry function '(\S+)'", line)
         if m:
-            fn = label(m.group(1))
+            fn = kernel_label(m.group(1))
         elif fn in rows:
             m = re.search(r"Used (\d+) registers", line)
             if m:
@@ -154,10 +165,10 @@ def tensor_core_use(build, log: str) -> dict:
     for fn, r in sorted(rows.items()):
         print(f"  {fn:22s} HMMA {r['hmma']:5d}  registers "
               f"{r.get('registers')}  spill bytes {r.get('spill_bytes')}")
-    bf16 = [fn for fn in rows if "bf16" in fn]
-    if not bf16 or any(rows[fn]["hmma"] == 0 for fn in bf16):
-        fail(f"a bf16 flash_fwd instantiation has no HMMA instruction: "
-             f"{rows}")
+    tc = [fn for fn in rows if fn.split("<")[0].endswith("_bf16")]
+    if not tc or any(rows[fn]["hmma"] == 0 for fn in tc):
+        fail(f"a tensor-core instantiation of {name} has no HMMA "
+             f"instruction: {rows}")
     return rows
 
 
@@ -333,7 +344,11 @@ def check_flash(torch, fa, ref) -> dict:
     return rows
 
 
-# (name, BH, T, dk, dv, chunk, dtype, normalize)
+# (name, BH, T, dk, dv, chunk, dtype, normalize).  bf16 with dk and dv
+# multiples of 16 (up to 128) runs on the tensor-core kernel, any other
+# bf16 shape and f32 on the CUDA-core one.  The bf16 tensor-core edges:
+# a ragged last chunk, normalizing at W=256, dk != dv with the chunk one
+# 64-row sub-tile; and one bf16 shape (dv=40) on the CUDA cores.
 GLA_CASES = (
     ("fleet_gla_64x16_512_64_W128", 64 * 16, 512, 64, 64, 128, "bf16",
      False),
@@ -342,7 +357,18 @@ GLA_CASES = (
     ("normalize_16_512_128_W128", 16, 512, 128, 128, 128, "bf16", True),
     ("f32_ragged_32_300_64_W128", 32, 300, 64, 64, 128, "f32", False),
     ("f32_normalize_8_96_16x40_W32", 8, 96, 16, 40, 32, "f32", True),
+    ("bf16_ragged_32_300_64_W128", 32, 300, 64, 64, 128, "bf16", False),
+    ("bf16_normalize_64_512_64_W256", 64, 512, 64, 64, 256, "bf16", True),
+    ("bf16_dk128_dv64_32_256_W64", 32, 256, 128, 64, 64, "bf16", False),
+    ("bf16_cuda_cores_8_96_16x40_W32", 8, 96, 16, 40, 32, "bf16", True),
 )
+
+
+def gla_tensor_cores(dk: int, dv: int) -> bool:
+    """Whether a bf16 GLA call of these widths takes the tensor-core
+    kernel (``dispatch`` in csrc/gla_scan.cu; 16-byte aligned inputs,
+    as PyTorch allocates them)."""
+    return all(d % 16 == 0 and 16 <= d <= 128 for d in (dk, dv))
 
 
 def gla_flops(BH: int, T: int, dk: int, dv: int, W: int) -> float:
@@ -374,8 +400,11 @@ def check_gla(torch, gs, ref) -> dict:
         nbytes = BH * T * (2 * dk + 2 * dv) * q.element_size() \
             + 4 * BH * T + 4 * BH * (dk * dv + dk)
         bnd, by = bound(nbytes, gla_flops(BH, T, dk, dv, min(W, T)), rate)
+        cores = "tensor" if dtype == torch.bfloat16 and \
+            gla_tensor_cores(dk, dv) else "CUDA"
         row = {"case": name, "shape": {"qk": [BH, T, dk], "v": [BH, T, dv]},
                "chunk": W, "dtype": str(dtype), "normalize": normalize,
+               "cores": cores,
                "ok": ok_y and ok_s and ok_n,
                "max_abs_err": max(err_y, err_s, err_n), "y_err": err_y,
                "S_err": err_s, "n_err": err_n, "y_err_over_tol": ex_y,
@@ -387,7 +416,8 @@ def check_gla(torch, gs, ref) -> dict:
                "bound_ms": bnd, "bound_by": by, "library_ms": None,
                "bytes": nbytes}
         rows[name] = row
-        print(f"  {name:30s} ok={row['ok']} y err {err_y:.3e} ({ex_y:.3f} "
+        print(f"  {name:30s} ({cores} cores) ok={row['ok']} y err "
+              f"{err_y:.3e} ({ex_y:.3f} "
               f"of tol) S err {err_s:.3e} ({ex_s:.3f}) n err {err_n:.3e} "
               f"({ex_n:.3f}); kernel {row['ms']:.5f} ms plain "
               f"{row['plain_ms']:.5f} ms bound {bnd:.5f} ms ({by})")
@@ -788,8 +818,10 @@ def main() -> int:
         for line in rep["log"].splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}")
-    print("flash_attention tensor-core use (cuobjdump -sass):")
-    tensor_cores = tensor_core_use(_build, built["flash_attention"]["log"])
+    tensor_cores = {}
+    for name in ("flash_attention", "gla_scan"):
+        print(f"{name} tensor-core use (cuobjdump -sass):")
+        tensor_cores[name] = tensor_core_use(_build, built[name]["log"], name)
 
     # 3. kernels vs plain versions
     print("int8_quant vs plain version (bitwise):")
@@ -839,7 +871,7 @@ def main() -> int:
         "fleet_gla": {str(m): {k: v for k, v in r.items()}
                       for m, r in lm_runs.items()},
         "zamba2_7b": z7, "launches": paths,
-        "flash_tensor_cores": tensor_cores,
+        "tensor_cores": tensor_cores,
         "quantizer_cases": list(qcases.values()),
         "flash_cases": list(fcases.values()),
         "gla_cases": list(gcases.values())}, default=str))

@@ -1,5 +1,6 @@
 // Chunked gated linear recurrence for Hopper (sm_90a): the SSD / mLSTM
-// primitive, f32 arithmetic on the CUDA cores.
+// primitive.  bf16 runs on the tensor cores (mma.sync), f32 on the CUDA
+// cores.
 //
 // Replaces src/repro/kernels/gla_scan.py::_gla_kernel (the Pallas TPU
 // kernel behind repro.kernels.gla_scan.gla_scan_fwd).  Per head bh, with a
@@ -19,42 +20,126 @@
 //
 // Every decay is an exponential of a difference (ca_i - ca_j <= 0,
 // tot - ca_j <= 0), never a product e^{ca_i} e^{-ca_j}, which overflows
-// once the decays are large.
+// once the decays are large.  A ragged last chunk (T not a multiple of W)
+// is padded with zero q, k, v and a, as repro.models.lm.gla.chunked_gla
+// pads: padded steps leave the state untouched and their outputs are not
+// written.
 //
-// Design.  The TPU walks the chunks on its sequential grid axis; here one
-// block of 256 threads per (bh, 64-column slice of dv) walks them in a loop,
-// holding its [dk, 64] slice of S (and the whole n) in shared memory.  Each
-// slice computes n, which depends only on k and a, and slice 0 writes it.
-// The TPU holds a whole chunk and its W x W decay and score matrices in
-// its on-chip memory; at W = 256 that is 768 KB in f32, which no Hopper
-// block has.  So the intra-chunk term is built per (64-row query sub-tile,
-// 64-row key sub-tile at or before it): scores [64, 64] go through shared
-// memory to the P.V product and the W x W matrix is never stored.  The
-// cumsum runs in one warp (a sequential run per lane, then a shuffle scan).
-// A ragged last chunk (T not a multiple of W) is padded with zero k, v and
-// a, as repro.models.lm.gla.chunked_gla pads: padded steps leave the state
-// untouched and their outputs are not written.
+// Bound on this card.  At fleet-gla's shape (1,024 heads of T = 512,
+// dk = dv = 64, W = 128, bf16) the kernel must move 288 MB (q, k, v, y
+// once each, a, S and n): 0.086 ms at 3.35 TB/s.  The chunked work
+// (_gla_flops of the JAX layer stack) is 25.8 GFLOP: 0.385 ms on the f32
+// CUDA cores at 67 TFLOP/s even at peak, 0.026 ms on the bf16 tensor
+// cores.  So bytes bound it, but only once the products leave the CUDA
+// cores.
 //
-// Shared memory per block (f32): state [DKP][64], Q and K sub-tiles
-// [64][DKP + 1], V [64][64], P [64][65], n [DKP], and 2 W floats of
-// cumsum and state weights, with DKP = 64 for dk <= 64 and 128 for
-// dk <= 128: 83,968 B at dk = 64, W = 128 (2 blocks per SM), 84,992 B at
-// dk = 64, W = 256, and 134,400 B at dk = 128, W = 256 (1 block per SM),
-// of the 227 KB a block may take.
+// Dispatch (dispatch): bf16 with dk and dv multiples of 16 (dk <= 128,
+// dv <= 128) and 16-byte aligned q, k, v goes to gla_fwd_bf16<DK, DV>,
+// with DK, DV the widths rounded up to 64 or 128 (zero-padded in shared
+// memory).  That takes every LM config of the port (Mamba2 head_dim 64,
+// d_state 64 or 128).  Any other bf16 shape, and every f32 call, goes to
+// gla_fwd<T, DKP> on the CUDA cores.  The choice is by dtype and shape
+// alone; neither kernel falls back to the other.
 //
-// Bound on this card: the chunked work (_gla_flops of the JAX layer stack)
-// is small against the bytes (q, k, v, y once each, plus the states), so
-// the bound is bytes at 3.35 TB/s, or the tensor cores for large W.  What
-// holds this kernel back: every product runs on the CUDA cores in f32 from
-// shared memory, the blocks of one head re-read q and k per dv slice, the
-// key sub-tiles are loaded again for the state update, and the chunk loop
-// is serial inside a block with no copy overlapping compute.  wgmma on bf16
-// sub-tiles, with the next chunk's tiles loaded by TMA during this chunk's
-// products, is the later design.
+// gla_fwd_bf16, the tensor-core kernel.  One block of 4 warps per head
+// holds all of dv, so q and k are read once per head (not once per dv
+// slice), and walks the head's chunks in order with S (f32, [dk][dv]) and
+// n in shared memory.  Within a chunk it takes 64-row query sub-tiles,
+// warp w owning rows 16 w .. 16 w + 15, and for each the 64-row key tiles
+// at or before it: steps (chunk, query sub-tile, key tile).
+//   - Copies (was: scalar 2-byte loads with an integer divide each, between
+//     two barriers): cp.async.cg 16-byte copies into bf16 shared memory,
+//     rows padded by 16 B (stride d + 8) so every ldmatrix is free of bank
+//     conflicts; rows past W or T are zero-filled through the src-size
+//     operand.  Two stage buffers: the next step's Q (at a sub-tile's first
+//     key tile), K and V tiles, and the next chunk's a (4-byte cp.async),
+//     are in flight while this step computes.
+//   - Cumsum (was: one warp, seven waiting): every thread sums its run of
+//     the chunk's a, then a shuffle scan within each warp and the four warp
+//     totals across them.  Rows past W hold a = 0, so ca = tot there.
+//   - Products (was: f32 FMAs from shared memory on the CUDA cores):
+//       Q K^T  mma.sync m16n8k16 bf16, f32 accumulators; Q's A fragments
+//              stay in registers for the sub-tile, K's B fragments by
+//              ldmatrix.
+//       Q S_in mma.sync m16n8k8 TF32: q in bf16 is exact in TF32, S_in is
+//              rounded to nearest (cvt.rna's rounding, done in two integer
+//              operations, which was faster on the card than the cvt);
+//              S is stored as interleaved row pairs
+//              (float2, stride dv + 4) so each B fragment is one conflict-
+//              free 8-byte load.  Scaled per row by e^{ca_i} afterwards.
+//              den takes q . n_in on the CUDA cores.
+//       P V    mma.sync m16n8k8 TF32, P = (q_i . k_j) e^{ca_i - ca_j}
+//              rounded the same way; with the k index permuted within each
+//              8-key group (slot t <-> key 2 t, slot t + 4 <-> key 2 t + 1)
+//              P's A fragments are the scores' C fragments and V's B
+//              fragments are the halves of one ldmatrix.trans register, as
+//              in flash_fwd_bf16.  The causal mask runs on the diagonal key
+//              tile only; tiles after the diagonal are never visited.  On
+//              the diagonal, a warp computes and zeroes the products after
+//              its rows rather than skipping them: the warp-dependent
+//              branches cost more on the card than the skipped products
+//              save, since the warp with the last rows sets the step
+//              anyway.  den sums
+//              the f32 scores before rounding.
+//       state  S_new = e^{tot} S_in + (K o w)^T V, w_j = e^{tot - ca_j},
+//              mma.sync m16n8k8 TF32, each warp owning 16 rows of dk (32 at
+//              dk 128): K o w is formed in f32 from ldmatrix.trans
+//              fragments of K and rounded to TF32; V's fragments come by
+//              ldmatrix.trans as for P V (its own loop: sharing P V's
+//              fragments under a compile-time flag spilled at the register
+//              cap and was slower).  n_new sums the f32 K o w on the CUDA
+//              cores.
+//   - Re-reads (was: K and V loaded again per query sub-tile and once more
+//     for the state update, 5 times per chunk at W = 128, 14 at W = 256):
+//     the state update rides the last query sub-tile's key loop, which
+//     visits every key tile of the chunk, so K and V are not loaded for it
+//     again; the key tiles of earlier sub-tiles (n_sub (n_sub + 1) / 2
+//     loads per chunk, 3 at W = 128, 10 at W = 256) come from L2.  S_new
+//     stays in accumulators until the chunk's last step, when every sub-tile
+//     has read S_in.
+//   - Shared memory (was: 84 KB of f32 per block, 2 blocks per SM): bf16
+//     tiles, 74.5 KB at dk = dv = 64, W = 128 and 76.0 KB at W = 256, and
+//     168 registers (the cap for 3 blocks, tc_min_blocks): 3 blocks per
+//     SM.  2 blocks with 190 registers were slower on the card.
+//   - Epilogue: y = acc / max(|den|, 1) (when normalizing, as a multiply
+//     by the reciprocal) in bf16 for rows < W and < T; S and n in f32
+//     after the last chunk.
+//   What still holds it back (times in PERF.md): three of its four
+//   products run in TF32, at half the bf16 rate; each warp runs products,
+//   decays and products in sequence with two barriers per step; and 168
+//   registers hold it to 3 blocks (12 warps) per SM.  Holding a chunk's
+//   whole K and V in shared memory (each element leaving device memory
+//   once) was not built: with no tile copies at all the kernel was no
+//   faster on the card, and the 64 KB more it needs at W = 256 would leave
+//   2 blocks per SM.
+//   Precision of each product, from the CPU emulation of these rounding
+//   points (tests/test_torch_gla_numerics.py) against the step recurrence
+//   at the bf16 TOL of tests/test_kernel_oracle.py: with P, S_in and K o w
+//   in TF32 the worst y error is 0.25 of its allowance and S's 0.05.  P in
+//   bf16 (m16n8k16, half the tensor time) reaches 2.06 x the y allowance;
+//   K o w in bf16 reaches 1.32 x through the state into later chunks' y;
+//   S_in in bf16 0.96 x.
+//
+// gla_fwd, the CUDA-core kernel (f32, and bf16 shapes the tensor-core
+// kernel does not take).  The f32 TOL of the oracle (1e-4 + 64 ulp) is met
+// by no bf16 or TF32 product (TF32 keeps 11 significant bits), so f32
+// stays in f32 FMAs.  One block of 256 threads per (bh, 64-column slice of
+// dv) walks the chunks in a loop, holding its [dk, 64] slice of S (and the
+// whole n) in shared memory.  Each slice computes n, which depends only on
+// k and a, and slice 0 writes it.  The intra-chunk term is built per
+// (64-row query sub-tile, 64-row key sub-tile at or before it): scores
+// [64, 64] go through shared memory to the P.V product and the W x W
+// matrix is never stored.  The cumsum runs in one warp (a sequential run
+// per lane, then a shuffle scan).  Shared memory per block (f32): state
+// [DKP][64], Q and K sub-tiles [64][DKP + 1], V [64][64], P [64][65], n
+// [DKP], and 2 W floats of cumsum and state weights, with DKP = 64 for
+// dk <= 64 and 128 for dk <= 128: 83,968 B at dk = 64, W = 128, and
+// 134,400 B at dk = 128, W = 256.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -83,6 +168,10 @@ int smem_bytes(int W) {
                      kTile * (kTile + 1) + DKP + 2 * W;
   return floats * static_cast<int>(sizeof(float));
 }
+
+// ---------------------------------------------------------------------------
+// CUDA cores: f32, and bf16 shapes the tensor-core kernel does not take.
+// ---------------------------------------------------------------------------
 
 // Loads rows [row0, row0 + 64) of a [T, width] matrix (chunk-relative row
 // index r0 + r must be < W and the absolute row < n_t, else zero), columns
@@ -314,6 +403,511 @@ gla_fwd(const T* __restrict__ q, const T* __restrict__ k,
       n_out[static_cast<long long>(bh) * dk + d] = ns[d];
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores.
+// ---------------------------------------------------------------------------
+
+constexpr int kTcThreads = 128;   // 4 warps, 16 query rows each
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 (or 4) bytes global -> shared; src_bytes = 0 writes zeros.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a (16 x 8, row) * b (8 x 8, col), TF32 in, f32 accumulate.
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// f32 -> TF32, round to nearest, ties away from zero: cvt.rna.tf32.f32's
+// result for every finite x (a carry into the 13 dropped bits rounds the
+// magnitude), in two integer operations, which was faster on the card.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// The two bf16 of a register (low half: the lower index), widened
+// exactly; as bits, each is already a TF32 operand.
+__device__ __forceinline__ uint32_t lo_bits(uint32_t x) { return x << 16; }
+__device__ __forceinline__ uint32_t hi_bits(uint32_t x) {
+  return x & 0xffff0000u;
+}
+__device__ __forceinline__ float lo_f(uint32_t x) {
+  return __uint_as_float(lo_bits(x));
+}
+__device__ __forceinline__ float hi_f(uint32_t x) {
+  return __uint_as_float(hi_bits(x));
+}
+
+// Shared memory of gla_fwd_bf16<DK, DV>, in bytes: two stage buffers of
+// Q, K [64][DK + 8] and V [64][DV + 8] bf16; S as row pairs float2
+// [DK / 2][DV + 4]; n [DK]; four warp totals; then a [2][Wp] (a stage
+// each) and ca [Wp] f32, with Wp the chunk rounded up to 64 rows.
+template <int DK, int DV>
+struct TcSmem {
+  static constexpr int KSTR = DK + 8;
+  static constexpr int VSTR = DV + 8;
+  static constexpr int SSTR = DV + 4;
+  static constexpr int Q_BYTES = kTile * KSTR * 2;
+  static constexpr int STAGE = 2 * Q_BYTES + kTile * VSTR * 2;
+  static constexpr int S_OFF = 2 * STAGE;
+  static constexpr int N_OFF = S_OFF + DK / 2 * SSTR * 8;
+  static constexpr int RED_OFF = N_OFF + DK * 4;
+  static constexpr int A_OFF = RED_OFF + 4 * 4;
+  static int bytes(int W) {
+    return A_OFF + 3 * ((W + kTile - 1) / kTile * kTile) * 4;
+  }
+};
+
+// Blocks per SM the register allocation must allow: 3 at dk = dv = 64
+// (the shared memory allows 3 there); ptxas chooses at the wider shapes.
+template <int DK, int DV>
+__host__ __device__ constexpr int tc_min_blocks() {
+  return DK == 64 && DV == 64 ? 3 : 1;
+}
+
+// Chunk rows [r0, r0 + 64) of a [n_t, ld] bf16 matrix (ld <= D columns
+// valid) into shared memory at `dst` (row stride D + 8); rows at or past
+// W or n_t and columns past ld are zero-filled.
+template <int D>
+__device__ __forceinline__ void load_rows(uint32_t dst,
+                                          const __nv_bfloat16* src, int ld,
+                                          long long t0, int r0, int W,
+                                          int n_t, int tid) {
+  constexpr int CH = D / 8;   // 16-byte chunks per row
+  static_assert(kTile * CH % kTcThreads == 0, "whole chunks per thread");
+#pragma unroll
+  for (int i = 0; i < kTile * CH / kTcThreads; ++i) {
+    const int c = tid + i * kTcThreads;
+    const int r = c / CH, ch = c - r * CH;
+    const long long t = t0 + r0 + r;
+    const bool in = r0 + r < W && t < n_t && ch * 8 < ld;
+    cp_async16(dst + (r * (D + 8) + ch * 8) * 2, in ? src + t * ld + ch * 8
+                                                    : src, in ? 16 : 0);
+  }
+}
+
+// Inclusive cumsum of the chunk's a (as[0 .. Wp)) into ca, by every
+// thread: a run of `per` rows each, a shuffle scan within each warp, and
+// the warp totals across them.  Ends before the block's barrier that
+// publishes ca.
+__device__ __forceinline__ void chunk_cumsum(const float* as, float* ca,
+                                             float* red, int Wp, int tid) {
+  const int per = (Wp + kTcThreads - 1) / kTcThreads;
+  const int lo = tid * per, hi = min(lo + per, Wp);
+  const int lane = tid & 31, warp = tid >> 5;
+  float run = 0.0f;
+  for (int i = lo; i < hi; ++i) run += as[i];
+  float incl = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float up = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += up;
+  }
+  if (lane == 31) red[warp] = incl;
+  __syncthreads();
+  float before = incl - run;
+  for (int w = 0; w < warp; ++w) before += red[w];
+  for (int i = lo; i < hi; ++i) {
+    before += as[i];
+    ca[i] = before;
+  }
+}
+
+template <int DK, int DV>
+__global__ void __launch_bounds__(kTcThreads, tc_min_blocks<DK, DV>())
+gla_fwd_bf16(const __nv_bfloat16* __restrict__ q,
+             const __nv_bfloat16* __restrict__ k,
+             const __nv_bfloat16* __restrict__ v, const float* __restrict__ a,
+             __nv_bfloat16* __restrict__ y, float* __restrict__ S_out,
+             float* __restrict__ n_out, int n_t, int dk, int dv, int W,
+             int normalize) {
+  using L = TcSmem<DK, DV>;
+  constexpr int KS = DK / 16;   // k-steps of Q K^T
+  constexpr int NV = DV / 8;    // n-tiles of y and of the state
+  constexpr int MT = DK / 64;   // 16-row m-tiles of the state per warp
+  constexpr int KSTR = L::KSTR, VSTR = L::VSTR, SSTR = L::SSTR;
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  const uint32_t base = smem_addr(smem_tc);
+  float2* Sp = reinterpret_cast<float2*>(smem_tc + L::S_OFF);
+  float* ns = reinterpret_cast<float*>(smem_tc + L::N_OFF);
+  float* red = reinterpret_cast<float*>(smem_tc + L::RED_OFF);
+  const int n_sub = (W + kTile - 1) / kTile;
+  const int Wp = n_sub * kTile;
+  float* a_s = reinterpret_cast<float*>(smem_tc + L::A_OFF);   // [2][Wp]
+  float* ca = a_s + 2 * Wp;                                  // [Wp]
+
+  const int bh = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;   // accumulator row / column pair
+  const long long head = static_cast<long long>(bh) * n_t;
+  const __nv_bfloat16* qb = q + head * dk;
+  const __nv_bfloat16* kb = k + head * dk;
+  const __nv_bfloat16* vb = v + head * dv;
+  const float* ab = a + head;
+  __nv_bfloat16* yb = y + head * dv;
+
+  for (int e = tid; e < DK / 2 * SSTR; e += kTcThreads)
+    Sp[e] = make_float2(0.0f, 0.0f);
+  for (int e = tid; e < DK; e += kTcThreads) ns[e] = 0.0f;
+
+  // The copies of step (c, qs, ks) into stage buffer b: K and V rows of
+  // key tile ks of chunk c, Q rows of sub-tile qs at its first key tile,
+  // and the chunk's a at its first step.
+  auto issue = [&](int ic, int iq, int ik, int ib) {
+    const long long t0 = static_cast<long long>(ic) * W;
+    const uint32_t st = base + ib * L::STAGE;
+    if (ik == 0) load_rows<DK>(st, qb, dk, t0, iq * kTile, W, n_t, tid);
+    load_rows<DK>(st + L::Q_BYTES, kb, dk, t0, ik * kTile, W, n_t, tid);
+    load_rows<DV>(st + 2 * L::Q_BYTES, vb, dv, t0, ik * kTile, W, n_t, tid);
+    if (iq == 0 && ik == 0) {
+      const uint32_t as = smem_addr(a_s + ib * Wp);
+      for (int r = tid; r < Wp; r += kTcThreads) {
+        const bool in = r < W && t0 + r < n_t;
+        cp_async4(as + r * 4, in ? ab + t0 + r : ab, in ? 4 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+
+  const int n_chunks = (n_t + W - 1) / W;
+  uint32_t qf[KS][4];        // Q's A fragments, for the sub-tile
+  float acc[NV][4];          // y rows r_lo, r_lo + 8, for the sub-tile
+  float den[2];              // this lane's share of den for those rows
+  float ca_r[2];             // ca of those rows
+  float snew[MT][NV][4];     // sum_j (K o w)^T V, for the chunk
+  float nsum[MT][2];         // this lane's share of sum_j (K o w)
+  float tot = 0.0f;
+
+  issue(0, 0, 0, 0);
+  int c = 0, qs = 0, ks = 0, b = 0;
+  for (;;) {
+    int nc = c, nq = qs, nk = ks + 1;
+    if (nk > nq) {
+      nk = 0;
+      if (++nq == n_sub) {
+        nq = 0;
+        ++nc;
+      }
+    }
+    const bool more = nc < n_chunks;
+    if (more) {
+      issue(nc, nq, nk, b ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint32_t q_s = base + b * L::STAGE;
+    const uint32_t k_s = q_s + L::Q_BYTES;
+    const uint32_t v_s = k_s + L::Q_BYTES;
+    const bool last = qs == n_sub - 1;   // the state update rides this
+    const bool diag = ks == qs;
+    const int r_lo = qs * kTile + 16 * warp + g;   // chunk rows r_lo, +8
+
+    if (qs == 0 && ks == 0) {
+      chunk_cumsum(a_s + b * Wp, ca, red, Wp, tid);
+      __syncthreads();
+      tot = ca[W - 1];
+    }
+
+    if (ks == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        ldmatrix_x4(qf[kk], q_s + ((16 * warp + (lane & 15)) * KSTR +
+                                   16 * kk + (lane >> 4) * 8) * 2);
+      ca_r[0] = ca[r_lo];
+      ca_r[1] = ca[r_lo + 8];
+      const float e0 = __expf(ca_r[0]), e1 = __expf(ca_r[1]);
+      // Inter-chunk term, TF32: A from Q's bf16 fragments (k permuted
+      // within each 8-column group), B from S's row pairs.
+#pragma unroll
+      for (int n = 0; n < NV; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+#pragma unroll
+      for (int k8 = 0; k8 < DK / 8; ++k8) {
+        const uint32_t rg = qf[k8 >> 1][(k8 & 1) * 2];       // row g
+        const uint32_t rg8 = qf[k8 >> 1][(k8 & 1) * 2 + 1];  // row g + 8
+        const uint32_t af[4] = {lo_bits(rg), lo_bits(rg8), hi_bits(rg),
+                                hi_bits(rg8)};
+#pragma unroll
+        for (int n = 0; n < NV; ++n) {
+          const float2 sv = Sp[(4 * k8 + tq) * SSTR + 8 * n + g];
+          mma_tf32(acc[n], af, to_tf32(sv.x), to_tf32(sv.y));
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NV; ++n) {
+        acc[n][0] *= e0;
+        acc[n][1] *= e0;
+        acc[n][2] *= e1;
+        acc[n][3] *= e1;
+      }
+      den[0] = den[1] = 0.0f;
+      if (normalize) {
+        float d0 = 0.0f, d1 = 0.0f;
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          const float2 n0 =
+              *reinterpret_cast<const float2*>(ns + 16 * kk + 2 * tq);
+          const float2 n1 =
+              *reinterpret_cast<const float2*>(ns + 16 * kk + 8 + 2 * tq);
+          d0 += lo_f(qf[kk][0]) * n0.x + hi_f(qf[kk][0]) * n0.y +
+                lo_f(qf[kk][2]) * n1.x + hi_f(qf[kk][2]) * n1.y;
+          d1 += lo_f(qf[kk][1]) * n0.x + hi_f(qf[kk][1]) * n0.y +
+                lo_f(qf[kk][3]) * n1.x + hi_f(qf[kk][3]) * n1.y;
+        }
+        den[0] = e0 * d0;
+        den[1] = e1 * d1;
+      }
+      if (last) {
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          nsum[m][0] = nsum[m][1] = 0.0f;
+#pragma unroll
+          for (int n = 0; n < NV; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) snew[m][n][e] = 0.0f;
+        }
+      }
+    }
+
+    // Scores of the warp's 16 rows against the tile's 64 keys.  The
+    // step's loops are kept free of branches (see the note at the top).
+    float s[kTile / 8][4];
+#pragma unroll
+    for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+      for (int j = 0; j < kTile / 8; j += 2) {
+        uint32_t bk[4];
+        ldmatrix_x4(bk, k_s + ((8 * j + (lane & 7) + ((lane >> 4) << 3)) *
+                               KSTR + 16 * kk + ((lane >> 3) & 1) * 8) * 2);
+        mma_bf16(s[j], qf[kk], bk[0], bk[1]);
+        mma_bf16(s[j + 1], qf[kk], bk[2], bk[3]);
+      }
+    }
+    // P = scores * e^{ca_i - ca_j}, zero after the row on the diagonal.
+    const int j0 = ks * kTile;
+#pragma unroll
+    for (int j = 0; j < kTile / 8; ++j) {
+      const float2 cj =
+          *reinterpret_cast<const float2*>(ca + j0 + 8 * j + 2 * tq);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int il = 16 * warp + g + 8 * (e >> 1);
+        const int jl = 8 * j + 2 * tq + (e & 1);
+        const float p = diag && jl > il ? 0.0f :
+            s[j][e] * __expf(ca_r[e >> 1] - ((e & 1) ? cj.y : cj.x));
+        s[j][e] = p;
+        den[e >> 1] += p;
+      }
+    }
+
+    // acc += P V, 16 keys at a time, TF32 with the permuted k index.
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      uint32_t pa[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        pa[h][0] = to_tf32(s[2 * kk + h][0]);
+        pa[h][1] = to_tf32(s[2 * kk + h][2]);
+        pa[h][2] = to_tf32(s[2 * kk + h][1]);
+        pa[h][3] = to_tf32(s[2 * kk + h][3]);
+      }
+#pragma unroll
+      for (int n = 0; n < NV; n += 2) {
+        uint32_t bv[4];   // keys 16 kk + {0..7, 8..15} x dv 8 n + {0..15}
+        ldmatrix_x4_trans(bv, v_s + ((16 * kk + (lane & 7) +
+                                      ((lane >> 3) & 1) * 8) * VSTR +
+                                     8 * n + (lane >> 4) * 8) * 2);
+        mma_tf32(acc[n], pa[0], lo_bits(bv[0]), hi_bits(bv[0]));
+        mma_tf32(acc[n + 1], pa[0], lo_bits(bv[2]), hi_bits(bv[2]));
+        mma_tf32(acc[n], pa[1], lo_bits(bv[1]), hi_bits(bv[1]));
+        mma_tf32(acc[n + 1], pa[1], lo_bits(bv[3]), hi_bits(bv[3]));
+      }
+    }
+
+    // On the last sub-tile: snew += (K o w)^T V over this key tile, TF32
+    // with the permuted k index; V's fragments as for P V.
+    if (last) {
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        const float2 c0 =
+            *reinterpret_cast<const float2*>(ca + j0 + 16 * kk + 2 * tq);
+        const float2 c1 =
+            *reinterpret_cast<const float2*>(ca + j0 + 16 * kk + 8 + 2 * tq);
+        const float w0 = __expf(tot - c0.x), w1 = __expf(tot - c0.y);
+        const float w2 = __expf(tot - c1.x), w3 = __expf(tot - c1.y);
+        uint32_t ka[MT][2][4];
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          // kr[0]: keys 2t, 2t+1 of the group at dk row r0 + g; kr[1]: row
+          // r0 + g + 8; kr[2], kr[3]: keys 8 + 2t, 9 + 2t.
+          uint32_t kr[4];
+          ldmatrix_x4_trans(kr, k_s + ((16 * kk + (lane & 7) +
+                                        ((lane >> 4) << 3)) * KSTR +
+                                       64 * m + 16 * warp +
+                                       ((lane >> 3) & 1) * 8) * 2);
+          const float x00 = lo_f(kr[0]) * w0, x01 = hi_f(kr[0]) * w1;
+          const float x10 = lo_f(kr[1]) * w0, x11 = hi_f(kr[1]) * w1;
+          const float x20 = lo_f(kr[2]) * w2, x21 = hi_f(kr[2]) * w3;
+          const float x30 = lo_f(kr[3]) * w2, x31 = hi_f(kr[3]) * w3;
+          ka[m][0][0] = to_tf32(x00);
+          ka[m][0][1] = to_tf32(x10);
+          ka[m][0][2] = to_tf32(x01);
+          ka[m][0][3] = to_tf32(x11);
+          ka[m][1][0] = to_tf32(x20);
+          ka[m][1][1] = to_tf32(x30);
+          ka[m][1][2] = to_tf32(x21);
+          ka[m][1][3] = to_tf32(x31);
+          nsum[m][0] += (x00 + x01) + (x20 + x21);
+          nsum[m][1] += (x10 + x11) + (x30 + x31);
+        }
+#pragma unroll
+        for (int n = 0; n < NV; n += 2) {
+          uint32_t bv[4];
+          ldmatrix_x4_trans(bv, v_s + ((16 * kk + (lane & 7) +
+                                        ((lane >> 3) & 1) * 8) * VSTR +
+                                       8 * n + (lane >> 4) * 8) * 2);
+#pragma unroll
+          for (int m = 0; m < MT; ++m) {
+            mma_tf32(snew[m][n], ka[m][0], lo_bits(bv[0]), hi_bits(bv[0]));
+            mma_tf32(snew[m][n + 1], ka[m][0], lo_bits(bv[2]),
+                     hi_bits(bv[2]));
+            mma_tf32(snew[m][n], ka[m][1], lo_bits(bv[1]), hi_bits(bv[1]));
+            mma_tf32(snew[m][n + 1], ka[m][1], lo_bits(bv[3]),
+                     hi_bits(bv[3]));
+          }
+        }
+      }
+    }
+
+    if (diag) {   // the sub-tile's last key tile: y
+      float inv[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float d = den[r] + __shfl_xor_sync(0xffffffffu, den[r], 1);
+        d += __shfl_xor_sync(0xffffffffu, d, 2);
+        inv[r] = normalize ? 1.0f / fmaxf(fabsf(d), 1.0f) : 1.0f;
+      }
+      const long long t0 = static_cast<long long>(c) * W;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r_lo + 8 * r;
+        const long long t = t0 + row;
+        if (row >= W || t >= n_t) continue;
+#pragma unroll
+        for (int n = 0; n < NV; ++n) {
+          const int col = 8 * n + 2 * tq;
+          if (col < dv)
+            *reinterpret_cast<__nv_bfloat162*>(yb + t * dv + col) =
+                __floats2bfloat162_rn(acc[n][2 * r] * inv[r],
+                                      acc[n][2 * r + 1] * inv[r]);
+        }
+      }
+    }
+
+    if (last && diag) {   // the chunk's last step: S and n for the next
+      __syncthreads();    // every warp has read S_in and n_in
+      const float gt = __expf(tot);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        const int r0 = 64 * m + 16 * warp + g;
+#pragma unroll
+        for (int n = 0; n < NV; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = r0 + 8 * (e >> 1);
+            float* sp = reinterpret_cast<float*>(
+                Sp + (row >> 1) * SSTR + 8 * n + 2 * tq + (e & 1)) +
+                (row & 1);
+            *sp = gt * *sp + snew[m][n][e];
+          }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float sum = nsum[m][r] + __shfl_xor_sync(0xffffffffu, nsum[m][r], 1);
+          sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+          if (tq == 0) ns[r0 + 8 * r] = gt * ns[r0 + 8 * r] + sum;
+        }
+      }
+    }
+    __syncthreads();   // this buffer is refilled by the next copy
+    if (!more) break;
+    c = nc;
+    qs = nq;
+    ks = nk;
+    b ^= 1;
+  }
+
+  float* Sb = S_out + static_cast<long long>(bh) * dk * dv;
+  for (int e = tid; e < dk * dv; e += kTcThreads) {
+    const int r = e / dv, col = e - r * dv;
+    const float2 p = Sp[(r >> 1) * SSTR + col];
+    Sb[e] = (r & 1) ? p.y : p.x;
+  }
+  for (int r = tid; r < dk; r += kTcThreads)
+    n_out[static_cast<long long>(bh) * dk + r] = ns[r];
+}
+
+// ---------------------------------------------------------------------------
+// Launch.
+// ---------------------------------------------------------------------------
+
 template <typename T, int DKP>
 int launch(const void* q, const void* k, const void* v, const float* a,
            void* y, float* S, float* n, int bh, int n_t, int dk, int dv,
@@ -348,6 +942,57 @@ int dispatch_dk(const void* q, const void* k, const void* v, const float* a,
                         st);
 }
 
+template <int DK, int DV>
+int launch_tc(const void* q, const void* k, const void* v, const float* a,
+              void* y, float* S, float* n, int bh, int n_t, int dk, int dv,
+              int W, int normalize, cudaStream_t st) {
+  using L = TcSmem<DK, DV>;
+  static bool configured = false;  // once, for the largest chunk taken
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gla_fwd_bf16<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        L::bytes(kMaxChunk));
+    if (err != cudaSuccess) return int(err);
+    configured = true;
+  }
+  gla_fwd_bf16<DK, DV><<<bh, kTcThreads, L::bytes(W), st>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), a,
+      static_cast<__nv_bfloat16*>(y), S, n, n_t, dk, dv, W, normalize);
+  return int(cudaGetLastError());
+}
+
+// bf16 with dk, dv multiples of 16 up to 128 and 16-byte aligned q, k, v
+// (cp.async) take the tensor cores at widths rounded up to 64 or 128;
+// everything else takes the CUDA cores.
+int dispatch(const void* q, const void* k, const void* v, const float* a,
+             void* y, float* S, float* n, int is_bf16, int bh, int n_t,
+             int dk, int dv, int W, int normalize, cudaStream_t st) {
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+        reinterpret_cast<uintptr_t>(v)) & 15) == 0 &&
+      (reinterpret_cast<uintptr_t>(y) & 3) == 0;
+  if (is_bf16 && aligned && dk % 16 == 0 && dv % 16 == 0 && dv <= 128) {
+    if (dk <= 64 && dv <= 64)
+      return launch_tc<64, 64>(q, k, v, a, y, S, n, bh, n_t, dk, dv, W,
+                               normalize, st);
+    if (dk <= 64)
+      return launch_tc<64, 128>(q, k, v, a, y, S, n, bh, n_t, dk, dv, W,
+                                normalize, st);
+    if (dv <= 64)
+      return launch_tc<128, 64>(q, k, v, a, y, S, n, bh, n_t, dk, dv, W,
+                                normalize, st);
+    return launch_tc<128, 128>(q, k, v, a, y, S, n, bh, n_t, dk, dv, W,
+                               normalize, st);
+  }
+  if (is_bf16)
+    return dispatch_dk<__nv_bfloat16>(q, k, v, a, y, S, n, bh, n_t, dk, dv,
+                                      W, normalize, st);
+  return dispatch_dk<float>(q, k, v, a, y, S, n, bh, n_t, dk, dv, W,
+                            normalize, st);
+}
+
 }  // namespace
 
 // q, k: [bh, n_t, dk]; v: [bh, n_t, dv], all f32 (is_bf16 = 0) or all bf16
@@ -362,10 +1007,6 @@ extern "C" int gla_scan_fwd(const void* q, const void* k, const void* v,
   if (bh <= 0 || n_t <= 0 || dk <= 0 || dk > 128 || dv <= 0 || W <= 0 ||
       W > kMaxChunk)
     return int(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return dispatch_dk<__nv_bfloat16>(q, k, v, a, y, S, n, bh, n_t, dk, dv,
-                                      W, normalize, st);
-  return dispatch_dk<float>(q, k, v, a, y, S, n, bh, n_t, dk, dv, W,
-                            normalize, st);
+  return dispatch(q, k, v, a, y, S, n, is_bf16, bh, n_t, dk, dv, W,
+                  normalize, static_cast<cudaStream_t>(stream));
 }

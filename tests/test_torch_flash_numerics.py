@@ -51,7 +51,8 @@ def round_bf16(x: torch.Tensor) -> torch.Tensor:
 
 def round_tf32(x: torch.Tensor) -> torch.Tensor:
     """f32 -> TF32 (10 mantissa bits), round to nearest with ties away
-    from zero (``cvt.rna.tf32.f32``), for the finite ``p >= 0`` here."""
+    from zero (``cvt.rna.tf32.f32``), for finite x of either sign (the
+    carry rounds the magnitude)."""
     bits = x.contiguous().view(torch.int32)
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 

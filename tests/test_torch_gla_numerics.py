@@ -1,0 +1,308 @@
+"""Rounding points of the bf16 tensor-core GLA kernel, checked on the CPU.
+
+``csrc/gla_scan.cu``'s ``gla_fwd_bf16`` cannot run here, so this file
+emulates where it rounds and holds the result against the JAX package's
+reference (``repro.kernels.ref.ref_gla``, the step recurrence) at the
+bf16 ``gla_y`` / ``gla_state`` rule of tests/test_kernel_oracle.py
+(``atol + ulps * ulp_bf16(|want|)``), the rule ``chip_smoke.py`` holds
+the kernel to on the card.  The emulation (a test helper, not a plain
+version of the port) follows the kernel:
+
+* chunks of W steps, each cut into 64-row sub-tiles; a ragged last chunk
+  and the rows of the last sub-tile past W hold zero q, k, v and a;
+* ``ca``, the inclusive cumsum of ``a`` over the chunk, and
+  ``tot = ca[W - 1]``, in f32;
+* the inter-chunk term ``e^{ca_i} (q_i . S_in)``, with S_in rounded as
+  the B operand of its product, f32 accumulation; ``q_i . n_in`` in f32;
+* scores in f32 from bf16 q and k (each product is exact in f32), times
+  ``e^{ca_i - ca_j}`` in f32, zero for ``j > i``; the row sums of these
+  f32 scores feed ``den``; P rounded as the A operand of ``P V``;
+* the state update ``e^{tot} S_in + (K o w)^T V`` with
+  ``w_j = e^{tot - ca_j}``, ``K o w`` rounded as the A operand, f32
+  accumulation; ``n`` from the f32 ``K o w``;
+* ``y = acc / max(|den|, 1)`` (when normalizing) rounded to bf16.
+
+``DESIGN`` is the kernel's choice of rounding for each product.  Each
+case records its worst error as a fraction of the allowance, for the
+design and with each product's rounding switched to the other choice
+(``-s`` prints them).  With every rounding switched off and f32 inputs,
+the same emulation must meet the f32 rule, which checks its tiling,
+masking and padding apart from the rounding.
+"""
+from __future__ import annotations
+
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from repro.kernels import gla_scan as jgs
+from repro.kernels import ref as jref
+from tests.test_kernel_oracle import TOL, _ulp, assert_oracle_close
+from tests.test_torch_flash_numerics import round_bf16, round_tf32
+
+jax.config.update("jax_platform_name", "cpu")
+
+TILE = 64
+ROUND = {"bf16": round_bf16, "tf32": round_tf32, "f32": lambda x: x}
+# The kernel's operand rounding: P, S_in and K o w each enter a TF32
+# m16n8k8 product (cvt.rna); q and V in bf16 are exact in TF32.  Each
+# in bf16 (m16n8k16) would halve its product's tensor time, but misses
+# the bf16 y allowance or comes near it (the last test).
+DESIGN = {"p": "tf32", "s_in": "tf32", "kw": "tf32"}
+OTHER = {"bf16": "tf32", "tf32": "bf16"}
+F32 = {"p": "f32", "s_in": "f32", "kw": "f32"}
+
+
+def emulate_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   a: torch.Tensor, chunk: int, normalize: bool,
+                   design: dict):
+    """The kernel's arithmetic: q, k ``[BH, T, dk]``, v ``[BH, T, dv]``
+    (f32 tensors holding the kernel's input values), a f32 ``[BH, T]``.
+    Returns ``(y f32 [BH, T, dv] before the final rounding, S, n)``."""
+    p_round, s_round, kw_round = (ROUND[design[x]] for x in ("p", "s_in",
+                                                             "kw"))
+    BH, T, dk = q.shape
+    dv = v.shape[-1]
+    W = min(chunk, T)
+    n_sub = -(-W // TILE)
+    Wp = n_sub * TILE
+    S = torch.zeros((BH, dk, dv))
+    n = torch.zeros((BH, dk))
+    y = torch.empty((BH, T, dv))
+    keep = torch.ones((TILE, TILE), dtype=torch.bool).tril()
+    for t0 in range(0, T, W):
+        rows = min(W, T - t0)
+
+        def pad(x):
+            out = x.new_zeros((BH, Wp) + x.shape[2:])
+            out[:, :rows] = x[:, t0:t0 + rows]
+            return out
+
+        qc, kc, vc, ac = pad(q), pad(k), pad(v), pad(a)
+        ca = torch.cumsum(ac, dim=1)          # rows >= W: a = 0, ca = tot
+        tot = ca[:, W - 1:W]
+        for qs in range(n_sub):
+            i = slice(qs * TILE, qs * TILE + TILE)
+            qi, ci = qc[:, i], ca[:, i, None]
+            g = torch.exp(ci)
+            acc = (qi @ s_round(S)) * g
+            den = (qi @ n[..., None]) * g
+            for ks in range(qs + 1):
+                j = slice(ks * TILE, ks * TILE + TILE)
+                p = (qi @ kc[:, j].transpose(1, 2)) * \
+                    torch.exp(ci - ca[:, None, j])
+                if ks == qs:
+                    p = torch.where(keep, p, torch.zeros_like(p))
+                den = den + p.sum(-1, keepdim=True)
+                acc = acc + p_round(p) @ vc[:, j]
+            if normalize:
+                acc = acc / den.abs().clamp_min(1.0)
+            lo = qs * TILE
+            hi = min(lo + TILE, rows)
+            if hi > lo:
+                y[:, t0 + lo:t0 + hi] = acc[:, :hi - lo]
+        kw = kc * torch.exp(tot - ca)[..., None]
+        S = torch.exp(tot)[..., None] * S + \
+            kw_round(kw).transpose(1, 2) @ vc
+        n = torch.exp(tot) * n + kw.sum(1)
+    return y, S, n
+
+
+def over_tol(kind: str, got, want, dtype) -> float:
+    """Worst ``|got - want|`` as a fraction of the TOL allowance."""
+    atol, ulps = TOL[(kind, jnp.dtype(dtype).name)]
+    w = np.asarray(want, np.float32)
+    err = np.abs(np.asarray(got, np.float32) - w)
+    return float(np.max(err / (atol + ulps * _ulp(w, dtype))))
+
+
+# (BH, T, dk, dv, chunk, normalize): the main paths' shapes (fleet-gla
+# W=128, zamba2-7b W=256), then the edges chip_smoke.py drives in bf16.
+CASES = [
+    pytest.param(8, 512, 64, 64, 128, False, id="T512_W128_d64"),
+    pytest.param(8, 512, 64, 64, 256, False, id="T512_W256_d64"),
+    pytest.param(4, 512, 128, 128, 128, True, id="normalize_T512_W128_d128"),
+    pytest.param(8, 300, 64, 64, 128, False, id="ragged_T300_W128_d64"),
+    pytest.param(4, 512, 64, 64, 256, True, id="normalize_T512_W256_d64"),
+    pytest.param(4, 256, 128, 64, 64, False, id="dk128_dv64_T256_W64"),
+]
+# Log-decays -softplus(N + shift): mild as check_gla draws them, strong.
+DECAYS = [pytest.param(-2.0, id="mild"), pytest.param(2.0, id="strong")]
+
+
+def inputs(BH, T, dk, dv, shift, seed, dtype=np.float32):
+    """q, k, v as check_gla draws them; log-decays -softplus(N + shift),
+    or with ``shift=None`` uniform in [-0.25, 0) as the oracle test of
+    tests/test_kernel_oracle.py draws them."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((BH, T, dk)).astype(np.float32)
+    k = (0.3 * rng.standard_normal((BH, T, dk))).astype(np.float32)
+    v = rng.standard_normal((BH, T, dv)).astype(np.float32)
+    if shift is None:
+        a = -0.25 * rng.uniform(size=(BH, T)) - 1e-3
+    else:
+        a = -np.logaddexp(0.0, rng.standard_normal((BH, T)) + shift)
+    q, k, v = (jnp.asarray(x).astype(dtype) for x in (q, k, v))
+    return q, k, v, jnp.asarray(a.astype(np.float32))
+
+
+def to_torch(*xs):
+    return [torch.from_numpy(np.array(x, np.float32)) for x in xs]
+
+
+def fractions(tq, tk, tv, ta, chunk, normalize, design, want):
+    """(y, S, n) worst errors as fractions of the bf16 allowances."""
+    y, S, n = emulate_kernel(tq, tk, tv, ta, chunk, normalize, design)
+    y = y.to(torch.bfloat16).float().numpy()
+    return (over_tol("gla_y", y, want[0], jnp.bfloat16),
+            over_tol("gla_state", S.numpy(), want[1], jnp.bfloat16),
+            over_tol("gla_state", n.numpy(), want[2], jnp.bfloat16))
+
+
+def case_fractions(BH, T, dk, dv, chunk, normalize, shift):
+    """The design's fractions and, per product, the other choice's."""
+    q, k, v, a = inputs(BH, T, dk, dv, shift, seed=T + chunk + dk + dv,
+                        dtype=jnp.bfloat16)
+    want = jref.ref_gla(q, k, v, a, normalize=normalize)
+    args = to_torch(q, k, v, a) + [chunk, normalize]
+    out = {"design": fractions(*args, DESIGN, want)}
+    for prod, choice in DESIGN.items():
+        other = dict(DESIGN, **{prod: OTHER[choice]})
+        out[f"{prod}_{OTHER[choice]}"] = fractions(*args, other, want)
+    return out
+
+
+@pytest.mark.parametrize("shift", DECAYS)
+@pytest.mark.parametrize("BH,T,dk,dv,chunk,normalize", CASES)
+def test_bf16_design_meets_oracle_tol(BH, T, dk, dv, chunk, normalize,
+                                      shift, record_property):
+    q, k, v, a = inputs(BH, T, dk, dv, shift, seed=T + chunk + dk + dv,
+                        dtype=jnp.bfloat16)
+    want_y, want_S, want_n = jref.ref_gla(q, k, v, a, normalize=normalize)
+    y, S, n = emulate_kernel(*to_torch(q, k, v, a), chunk, normalize,
+                             DESIGN)
+    y = y.to(torch.bfloat16).float().numpy()
+    assert_oracle_close("gla_y", y, want_y, jnp.bfloat16)
+    assert_oracle_close("gla_state", S.numpy(), want_S, jnp.bfloat16)
+    assert_oracle_close("gla_state", n.numpy(), want_n, jnp.bfloat16)
+    fr = case_fractions(BH, T, dk, dv, chunk, normalize, shift)
+    for name, (fy, fs, fn) in fr.items():
+        record_property(f"y_over_tol_{name}", fy)
+        record_property(f"S_over_tol_{name}", fs)
+        record_property(f"n_over_tol_{name}", fn)
+    print(" ".join(f"{name}: y {fy:.4f} S {fs:.4f} n {fn:.4f};"
+                   for name, (fy, fs, fn) in fr.items()))
+    # The kernel's rule for its operand precision: within half of each
+    # allowance in every case.
+    assert max(fr["design"]) < 0.5, fr
+
+
+@pytest.mark.parametrize("BH,T,dk,dv,chunk,normalize", CASES)
+def test_emulated_tiling_meets_f32_tol(BH, T, dk, dv, chunk, normalize):
+    """The oracle test's decays: with -softplus decays over 128- and
+    256-step chunks, f32 ``ca_i - ca_j`` loses digits to cancellation
+    (|ca| reaches hundreds) and the chunked form misses the f32 rule
+    against the step recurrence whoever evaluates it, the TPU kernel in
+    interpret mode included (up to 1.8x the allowance at W=256)."""
+    q, k, v, a = inputs(BH, T, dk, dv, None, seed=T + chunk + dk + dv + 1)
+    want_y, want_S, want_n = jref.ref_gla(q, k, v, a, normalize=normalize)
+    y, S, n = emulate_kernel(*to_torch(q, k, v, a), chunk, normalize, F32)
+    assert_oracle_close("gla_y", y.numpy(), want_y, jnp.float32)
+    assert_oracle_close("gla_state", S.numpy(), want_S, jnp.float32)
+    assert_oracle_close("gla_state", n.numpy(), want_n, jnp.float32)
+
+
+def test_chunked_form_in_f32_misses_the_f32_tol_at_mamba2_decays():
+    """Why the f32 tiling check draws the oracle test's decays: at
+    -softplus(N + 2) decays over 256-step chunks the TPU kernel's own
+    chunked form in f32 (interpret mode) misses the f32 y allowance
+    against the step recurrence, and so does the emulation."""
+    BH, T, dk, dv, chunk = 8, 512, 64, 64, 256
+    q, k, v, a = inputs(BH, T, dk, dv, 2.0, seed=T + chunk + dk + dv + 1)
+    want_y = jref.ref_gla(q, k, v, a)[0]
+    y_tpu = jgs.gla_scan_fwd(q, k, v, a, chunk=chunk, interpret=True)[0]
+    y_emu = emulate_kernel(*to_torch(q, k, v, a), chunk, False, F32)[0]
+    frac = {"tpu": over_tol("gla_y", y_tpu, want_y, jnp.float32),
+            "emulation": over_tol("gla_y", y_emu.numpy(), want_y,
+                                  jnp.float32)}
+    print(f"f32 y over the f32 tol: {frac}")
+    assert min(frac.values()) > 1.0, frac
+
+
+def test_bf16_operands_miss_the_tolerance_where_tf32_meets_it():
+    """Why P, S_in and K o w enter TF32 products and not bf16 ones: at
+    fleet-gla's shape (T=512, W=128, dk=dv=64, mild decays), bf16 P or
+    bf16 K o w (through the state into the next chunks' y) exceed the
+    bf16 y allowance, and bf16 S_in is past half of it."""
+    fr = case_fractions(8, 512, 64, 64, 128, False, -2.0)
+    assert fr["p_bf16"][0] > 1.0, fr
+    assert fr["kw_bf16"][0] > 1.0, fr
+    assert fr["s_in_bf16"][0] > 0.5, fr
+    assert max(fr["design"]) < 0.5, fr
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py's side of the check (its CPU-testable helpers)
+# ---------------------------------------------------------------------------
+
+def test_chip_smoke_bf16_gla_cases_reach_the_kernel_edges():
+    bf16 = [c for c in chip_smoke.GLA_CASES if c[6] == "bf16"]
+    tc = [c for c in bf16 if chip_smoke.gla_tensor_cores(c[3], c[4])]
+    assert any(T % chunk for _, _, T, _, _, chunk, _, _ in tc)
+    assert any(norm and chunk == 256 for *_, chunk, _, norm in tc)
+    assert any(dk != dv and chunk <= TILE
+               for _, _, _, dk, dv, chunk, _, _ in tc)
+    assert any(not chip_smoke.gla_tensor_cores(c[3], c[4]) for c in bf16)
+
+
+@pytest.mark.parametrize("dk,dv,want", [
+    (64, 64, True), (128, 64, True), (16, 128, True), (16, 40, False),
+    (8, 64, False), (144, 64, False)])
+def test_chip_smoke_gla_route_by_shape(dk, dv, want):
+    assert chip_smoke.gla_tensor_cores(dk, dv) is want
+
+
+GLA_SASS = """
+        Function : _ZN12_GLOBAL__N_112gla_fwd_bf16ILi64ELi64EEEvPK13__nv_bfloat16
+        /*0010*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        /*0020*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;
+        /*0030*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;
+        Function : _ZN12_GLOBAL__N_17gla_fwdI13__nv_bfloat16Li64EEEvPKT_
+        /*0010*/                   FFMA R1, R2, R3, R1 ;
+        Function : _ZN12_GLOBAL__N_17gla_fwdIfLi128EEEvPKT_S3_S3_PKfPS1_
+        /*0010*/                   FFMA R1, R2, R3, R1 ;
+"""
+GLA_PTXAS = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_112gla_fwd_bf16ILi64ELi64EEEvPK13__nv_bfloat16' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 154 registers, used 1 barriers
+"""
+
+
+def test_chip_smoke_counts_hmma_per_gla_instantiation(monkeypatch):
+    class Done:
+        stdout = GLA_SASS
+
+    class Build:
+        _nvcc = staticmethod(lambda: "/cuda/bin/nvcc")
+        _target = staticmethod(lambda name: f"/build/lib{name}.so")
+
+    calls = []
+    monkeypatch.setattr(chip_smoke.subprocess, "run",
+                        lambda cmd, **kw: calls.append(cmd) or Done())
+    rows = chip_smoke.tensor_core_use(Build, GLA_PTXAS, "gla_scan")
+    assert calls == [["/cuda/bin/cuobjdump", "-sass",
+                      "/build/libgla_scan.so"]]
+    assert rows == {"gla_fwd_bf16<64, 64>": {"hmma": 3, "registers": 154,
+                                             "spill_bytes": 0},
+                    "gla_fwd<bf16, 64>": {"hmma": 0},
+                    "gla_fwd<float, 128>": {"hmma": 0}}
+    # The CUDA-core bf16 instantiation needs none; the tensor-core one
+    # fails without.
+    Done.stdout = re.sub(r"HMMA\S*", "FFMA", GLA_SASS)
+    with pytest.raises(SystemExit):
+        chip_smoke.tensor_core_use(Build, GLA_PTXAS, "gla_scan")
