@@ -12,11 +12,14 @@ Phases (every one that fails exits non-zero; there is no CPU path):
    ``cuobjdump -sass``, beside its registers and spills: every
    tensor-core (``*_bf16``) one must have some.
 3. Kernels vs their plain versions, on the card, at the main paths'
-   shapes and a few more: the int8 quantizer bitwise; flash attention
-   and the GLA scan within the ``TOL`` rule of tests/test_kernel_oracle.py
-   (``atol + ulps * ulp`` in the storage dtype).  Times from CUDA events
-   over CUDA-graph replays (device time, L2 warm); the library time is
-   one PyTorch call computing the same function, where there is one
+   shapes and a few more: both int8 entries (``quantize_int8`` and the
+   wire's fused ``wire_qdq_int8``, the latter also timed against the
+   composition it replaced) bitwise, NaN, +-inf, ragged and misaligned
+   rows included; flash attention and the GLA scan within the ``TOL``
+   rule of tests/test_kernel_oracle.py (``atol + ulps * ulp`` in the
+   storage dtype).  Times from CUDA events over CUDA-graph replays
+   (device time, L2 warm); the library time is one PyTorch call
+   computing the same function, where there is one
    (``scaled_dot_product_attention`` for attention without a window).
 4. AlexNet 224x224 at full width, B=64, int8 wire: ``Fleet.from_table2``
    -> ``plan`` -> ``Plan.init_params`` -> ``Plan.step_fn`` on the M=1
@@ -32,7 +35,8 @@ Phases (every one that fails exits non-zero; there is no CPU path):
    ``step_fn``, 3 steps through flash attention and the GLA scan.
    After its checked steps each LM path runs one step under
    ``torch.profiler``: device busy time against wall time, and the
-   kernels that took the most.
+   kernels that took the most.  Each path that crosses the int8 wire
+   runs one more step recording the layout of what the codec is handed.
 7. One JSON line of kernels; last, the ``{"ok": true, ...}`` line.
 
 Each main path (4, 5 per plan, 6) zeroes every launch counter just
@@ -42,6 +46,7 @@ executed segments imply.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import re
@@ -88,10 +93,19 @@ def fail(msg: str) -> None:
     raise SystemExit(1)
 
 
+@functools.cache
+def side_stream(torch):
+    """The one stream every warm-up runs on.  cuBLAS keeps a 32 MiB
+    workspace for each stream it has run on, allocated from PyTorch's
+    pool, so a new stream per timing left workspaces allocated into the
+    main paths' peak memory."""
+    return torch.cuda.Stream()
+
+
 def graph_ms(torch, fn, reps: int = 10, trials: int = 25) -> float:
     """Median device ms of one ``fn()``: ``reps`` calls captured in one
     CUDA graph, replayed ``trials`` times between CUDA events."""
-    stream = torch.cuda.Stream()
+    stream = side_stream(torch)
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
         for _ in range(3):                       # warm-up outside capture
@@ -203,18 +217,28 @@ def tol_check(torch, kind: str, got, want, dtype) -> tuple:
 # ---------------------------------------------------------------------------
 
 
-def quant_bound(M: int, N: int, x_bytes: int, u_tensor: bool) -> tuple:
-    """One quantize call: each input read once, each output written
-    once, vs ~6 f32 operations per element (abs, max, divide, add, floor,
-    clamp)."""
-    nbytes = M * N * (x_bytes + 1 + (4 if u_tensor else 0)) + 4 * M
-    return bound(nbytes, 6.0 * M * N, H100_F32_FLOP_PER_S)
+def quant_bound(M: int, N: int, x_bytes: int, u_tensor: bool,
+                wire: bool) -> tuple:
+    """One call: each input read once, each output written once, against
+    ~6 f32 operations per element (abs, max, divide, add, floor, clamp),
+    7 on the wire (the multiply back).  ``quantize_int8`` writes int8
+    codes and the f32 scales; the wire writes x's dtype.  The kernels'
+    ``[M, S]`` scratch of partial maxima is their design's, not the
+    function's, and is reported beside the bound."""
+    out_bytes = x_bytes if wire else 1
+    nbytes = M * N * (x_bytes + out_bytes + (4 if u_tensor else 0)) \
+        + (0 if wire else 4 * M)
+    return bound(nbytes, (7.0 if wire else 6.0) * M * N,
+                 H100_F32_FLOP_PER_S)
 
 
-def check_quantizer(torch, iq, ref) -> dict:
-    """The int8 kernel against its plain version, bitwise."""
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(SEED)
+def quant_cases(torch, dev, g) -> list:
+    """``(name, x, u)`` of the quantizer phase: the main paths' wire
+    shapes (AlexNet f32 39/33/6/5/4 x 50,176; fleet-gla bf16 35/38 x
+    262,144), a ragged f32 row, a 1x1, a zero row, a bf16 block, a NaN
+    row with a row holding +-inf, a bf16 row length that is not a whole
+    number of 16-byte vectors, and x at a storage offset, so its data
+    pointer is off 16-byte alignment."""
     cases = []
     for m in (39, 33, 6, 5, 4):                   # AlexNet's wire rows
         cases.append((f"wire_{m}x{WIRE_SHAPE_N}", torch.randn(
@@ -224,6 +248,12 @@ def check_quantizer(torch, iq, ref) -> dict:
             m, LM_T * 512, generator=g, device=dev).to(torch.bfloat16), 0.5))
     zero = torch.randn(3, 1000, generator=g, device=dev)
     zero[1] = 0.0
+    nan_inf = 3.0 * torch.randn(4, 3000, generator=g, device=dev)
+    nan_inf[1, 1234] = float("nan")
+    nan_inf[2, 17], nan_inf[2, 2999] = float("inf"), -float("inf")
+    flat = torch.randn(7 * 12345 + 1, generator=g, device=dev)
+    flat16 = torch.randn(64 * 4096 + 3, generator=g, device=dev).to(
+        torch.bfloat16)
     cases += [
         ("ragged_7x12345_u", torch.randn(7, 12345, generator=g, device=dev),
          torch.rand(7, 12345, generator=g, device=dev)),
@@ -232,32 +262,110 @@ def check_quantizer(torch, iq, ref) -> dict:
         ("zero_row_3x1000", zero, 0.5),
         ("bf16_64x4096", torch.randn(64, 4096, generator=g, device=dev)
          .to(torch.bfloat16), 0.5),
+        ("nan_inf_rows_4x3000", nan_inf, 0.5),
+        ("nan_inf_rows_bf16_4x3000", nan_inf.to(torch.bfloat16), 0.5),
+        ("bf16_ragged_5x12343", torch.randn(5, 12343, generator=g, device=dev)
+         .to(torch.bfloat16), 0.5),
+        ("offset_7x12345", flat[1:].view(7, 12345), 0.5),
+        ("offset_bf16_64x4096", flat16[3:].view(64, 4096), 0.5),
     ]
-    rows = []
-    for name, x, u in cases:
+    return cases
+
+
+def quant_divisors(torch, dev, g, n: int = 256):
+    """Row scales ``max(absmax, 1e-30) / 127`` as the wire makes them:
+    the extremes (1e-30 and the largest finite absmax), powers of two,
+    significands of all ones, and random finite absmax bit patterns."""
+    edge = torch.tensor([1e-30, 3.4028234663852886e38, 1.0, 127.0, 0.75,
+                         16777215.0, 2.0 ** -60, 2.0 ** 60], device=dev)
+    bits = torch.randint(0, 0x7F800000, (n - edge.numel(),), generator=g,
+                         device=dev, dtype=torch.int32)
+    absmax = torch.cat([edge, bits.view(torch.float32)]).clamp_min(1e-30)
+    return absmax / torch.full_like(absmax, 127.0)
+
+
+def same_bits(torch, got, want) -> bool:
+    """Bitwise equality with NaN at the same places (any NaN payload):
+    ``torch.equal`` is false on NaN."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return False
+    if not got.is_floating_point():
+        return torch.equal(got, want)
+    nan = torch.isnan(got)
+    if not torch.equal(nan, torch.isnan(want)):
+        return False
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    dt = ints[got.dtype]
+    return torch.equal(got[~nan].view(dt), want[~nan].view(dt))
+
+
+def max_err(torch, got, want) -> float:
+    """Largest |got - want| where neither is NaN (0 if none)."""
+    g, w = got.float(), want.float()
+    keep = ~(torch.isnan(g) | torch.isnan(w))
+    return float((g[keep] - w[keep]).abs().max()) if keep.any() else 0.0
+
+
+def check_quantizer(torch, iq, ref) -> dict:
+    """Both entries of the int8 kernel against their plain versions,
+    bitwise: ``quantize_int8`` on every case, the wire's fused
+    ``wire_qdq_int8`` on every case with u = 0.5, timed beside the
+    composition it replaces (``quantize_int8``, ``dequantize_int8``, the
+    cast)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    divisors = quant_divisors(torch, dev, g)
+    bad = iq.check_quotients(divisors)
+    print(f"  quotient(x, s) against x / s: {divisors.numel()} divisors x "
+          f"12 * 2^23 dividends, {bad} differ")
+    if bad:
+        fail(f"the kernels' division differs from the IEEE one on {bad} "
+             f"quotients")
+    rows = {}
+    for name, x, u in quant_cases(torch, dev, g):
+        M, N = x.shape
+        utensor = isinstance(u, torch.Tensor)
+        S = iq.plan_slices(M, N, x.element_size())[0]
         q, s = iq.quantize_int8(x, u)
         qr, sr = ref.ref_quantize_int8(x, u)
         torch.cuda.synchronize()
-        equal = torch.equal(q, qr) and torch.equal(s, sr)
-        err = max(float((q.int() - qr.int()).abs().max()),
-                  float((s - sr).abs().max()))
-        M, N = x.shape
-        utensor = isinstance(u, torch.Tensor)
-        bnd, by = quant_bound(M, N, x.element_size(), utensor)
-        row = {"case": name, "shape": [M, N], "dtype": str(x.dtype),
-               "equal": equal, "max_abs_err": err,
-               "ms": graph_ms(torch, lambda: iq.quantize_int8(x, u)),
-               "plain_ms": graph_ms(torch,
-                                    lambda: ref.ref_quantize_int8(x, u)),
-               "bound_ms": bnd, "bound_by": by, "library_ms": None}
-        rows.append(row)
-        print(f"  {name:22s} equal={equal} kernel {row['ms'] * 1e3:9.2f} us"
-              f"  plain {row['plain_ms'] * 1e3:9.2f} us  bound "
-              f"{bnd * 1e3:7.2f} us ({by})")
-        if not equal:
-            fail(f"int8_quant disagrees with its plain version on {name} "
-                 f"(max abs err {err})")
-    return {r["case"]: r for r in rows}
+        runs = [("quantize_int8", same_bits(torch, q, qr)
+                 and same_bits(torch, s, sr),
+                 max(max_err(torch, q, qr), max_err(torch, s, sr)),
+                 lambda: iq.quantize_int8(x, u),
+                 lambda: ref.ref_quantize_int8(x, u), None)]
+        if not utensor:
+            w, wr = iq.wire_qdq_int8(x), ref.ref_wire_qdq_int8(x)
+            torch.cuda.synchronize()
+            runs.append(("wire_qdq_int8", same_bits(torch, w, wr),
+                         max_err(torch, w, wr),
+                         lambda: iq.wire_qdq_int8(x),
+                         lambda: ref.ref_wire_qdq_int8(x),
+                         lambda: iq.dequantize_int8(*iq.quantize_int8(
+                             x, 0.5)).to(x.dtype)))
+        for entry, equal, err, kernel, plain, before in runs:
+            wire = entry == "wire_qdq_int8"
+            bnd, by = quant_bound(M, N, x.element_size(), utensor, wire)
+            row = {"case": name, "entry": entry, "shape": [M, N],
+                   "dtype": str(x.dtype), "slices": S,
+                   "scratch_bytes": 8 * M * S,
+                   "aligned": x.data_ptr() % 16 == 0, "equal": equal,
+                   "max_abs_err": err, "ms": graph_ms(torch, kernel),
+                   "plain_ms": graph_ms(torch, plain),
+                   "before_ms": None if before is None
+                   else graph_ms(torch, before),
+                   "bound_ms": bnd, "bound_by": by, "library_ms": None}
+            rows[f"{entry}:{name}"] = row
+            extra = "" if before is None else \
+                f"  before {row['before_ms'] * 1e3:9.2f} us"
+            print(f"  {entry:14s} {name:26s} S={S:<4d} equal={equal} "
+                  f"kernel {row['ms'] * 1e3:9.2f} us  plain "
+                  f"{row['plain_ms'] * 1e3:9.2f} us  bound {bnd * 1e3:7.2f}"
+                  f" us ({by}){extra}")
+            if not equal:
+                fail(f"{entry} disagrees with its plain version on {name} "
+                     f"(max abs err {err})")
+    return rows
 
 
 def attention_pairs(T: int, S: int, causal: bool, window: int) -> int:
@@ -458,7 +566,8 @@ def read_counters(kernels) -> dict:
 def run_plan(torch, api, kernels, cnn, m: int) -> dict:
     """AlexNet for one fleet: plan, then int8 steps through Plan.step_fn
     (``STEPS`` checked, ``TIMED_STEPS`` more for the step time), with the
-    launch counters zeroed just before and read just after."""
+    launch counters zeroed just before and read just after, and one
+    profiled step."""
     fleet = api.Fleet.from_table2("alexnet", m=m, wire="int8")
     p = api.plan(cnn.alexnet(), fleet, B)
     sched = p.multi_schedule
@@ -491,9 +600,11 @@ def run_plan(torch, api, kernels, cnn, m: int) -> dict:
         fail(f"M={m}: the loss did not fall on a fixed batch: {losses}")
     if launches != want:
         fail(f"M={m}: launches {launches}, expected {want}")
+    prof = profile_step(torch, step, params, x, y, f"M={m}")
     return {"plan": p, "losses": losses, "step_ms": ms,
             "launches": launches, "crossings": n_cross,
-            "launches_per_step": {k: v // n_steps for k, v in want.items()}}
+            "launches_per_step": {k: v // n_steps for k, v in want.items()},
+            "profile": prof}
 
 
 def step_fn(hs, p):
@@ -621,6 +732,7 @@ def lm_steps(torch, kernels, p, params, x, y, lr: float, n_steps: int,
     losses, ms = [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
     zero_counters(kernels)
     for _ in range(n_steps):
         torch.cuda.synchronize()
@@ -636,7 +748,8 @@ def lm_steps(torch, kernels, p, params, x, y, lr: float, n_steps: int,
     per_token = [v / T for v in losses]
     print(f"  {label} losses per sequence {losses}")
     print(f"  {label} losses per token {per_token}")
-    print(f"  {label} step ms {ms}; peak memory {peak / 2 ** 30:.3f} GiB")
+    print(f"  {label} step ms {ms}; peak memory {peak / 2 ** 30:.3f} GiB"
+          f" ({start / 2 ** 30:.3f} GiB allocated before the first step)")
     print(f"  {label} launches {launches} (expected {want})")
     if not all(math.isfinite(v) for v in losses):
         fail(f"{label}: non-finite loss {losses}")
@@ -646,7 +759,7 @@ def lm_steps(torch, kernels, p, params, x, y, lr: float, n_steps: int,
         fail(f"{label}: launches {launches}, expected {want}")
     prof = profile_step(torch, step, params, x, y, label)
     return {"losses": losses, "per_token": per_token, "step_ms": ms,
-            "peak_bytes": peak, "launches": launches,
+            "peak_bytes": peak, "start_bytes": start, "launches": launches,
             "launches_per_step": per_step, "profile": prof}
 
 
@@ -824,12 +937,15 @@ def main() -> int:
         tensor_cores[name] = tensor_core_use(_build, built[name]["log"], name)
 
     # 3. kernels vs plain versions
-    print("int8_quant vs plain version (bitwise):")
+    print("int8_quant, both entries, vs plain versions (bitwise):")
     qcases = check_quantizer(torch, iq, ref)
     print("flash_attention vs plain version (TOL rule):")
     fcases = check_flash(torch, fa, ref)
     print("gla_scan vs plain version (TOL rule):")
     gcases = check_gla(torch, gs, ref)
+
+    print(f"kernel phase leaves {torch.cuda.memory_allocated()} bytes "
+          f"allocated")
 
     # 4. AlexNet
     print("main path: AlexNet 224x224, B=64, wire=int8")
@@ -866,7 +982,8 @@ def main() -> int:
     print("summary " + json.dumps({
         "alexnet": {str(m): {"step_ms": r["step_ms"], "losses": r["losses"],
                              "reference": ref_gap[m],
-                             "int8_loss_gap": int8_gap[m]}
+                             "int8_loss_gap": int8_gap[m],
+                             "profile": r["profile"]}
                     for m, r in runs.items()},
         "fleet_gla": {str(m): {k: v for k, v in r.items()}
                       for m, r in lm_runs.items()},
@@ -892,7 +1009,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("int8_quant", "src/repro_torch/kernels/csrc/int8_quant.cu",
               "src/repro/kernels/int8_quant.py:29",
-              qcases[f"wire_39x{WIRE_SHAPE_N}"], qcases, "equal"),
+              qcases[f"wire_qdq_int8:lm_bf16_35x{LM_T * 512}"], qcases,
+              "equal"),
         entry("flash_attention",
               "src/repro_torch/kernels/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:33",

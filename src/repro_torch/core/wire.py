@@ -125,7 +125,7 @@ class _Int8Wire(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g: torch.Tensor) -> torch.Tensor:
-        return kops.wire_qdq_int8(g.contiguous())
+        return kops.wire_qdq_int8(g)
 
 
 def wire_codec(wire: str) -> Optional[Callable[[torch.Tensor], torch.Tensor]]:

@@ -196,5 +196,4 @@ def wire_qdq_int8(x: torch.Tensor) -> torch.Tensor:
     what the receiving worker reconstructs from ``elems + 4`` wire
     bytes/sample (see :mod:`repro_torch.core.wire`)."""
     flat = x.reshape(x.shape[0], -1).contiguous()
-    q, scale = iq.quantize_int8(flat, 0.5)
-    return iq.dequantize_int8(q, scale).reshape(x.shape).to(x.dtype)
+    return iq.wire_qdq_int8(flat).reshape(x.shape)

@@ -35,6 +35,14 @@ def ref_quantize_int8(x: torch.Tensor, noise: Union[torch.Tensor, float]
     return q.to(torch.int8), scale[:, 0]
 
 
+def ref_wire_qdq_int8(x: torch.Tensor) -> torch.Tensor:
+    """The int8 wire's round trip on ``x [M, N]``: quantize with the
+    noise pinned at 0.5, dequantize in f32, round back to ``x``'s
+    dtype."""
+    q, scale = ref_quantize_int8(x, 0.5)
+    return (q.float() * scale[:, None]).to(x.dtype)
+
+
 def ref_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool, window: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:

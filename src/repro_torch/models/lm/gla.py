@@ -63,11 +63,15 @@ def chunked_gla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tot = ca[:, :, -1, :]                             # [B,nc,H]
 
     # Intra-chunk quadratic term: D[i,j] = exp(ca_i - ca_j) for j <= i.
+    # The masked exponents (j > i) are positive and overflow exp once the
+    # decays within a chunk sum below about -89; they are set to -inf
+    # before the exp, so their gradient is 0 and not 0 * inf = NaN.
     rel = ca[:, :, :, None, :] - ca[:, :, None, :, :]      # [B,nc,W,W,H]
     causal = torch.tril(torch.ones((W, W), dtype=torch.bool,
                                    device=q.device))
-    D = torch.where(causal[None, None, :, :, None], torch.exp(rel),
-                    torch.zeros((), device=q.device))
+    D = torch.exp(torch.where(causal[None, None, :, :, None], rel,
+                              torch.full((), float("-inf"), dtype=wide,
+                                         device=q.device)))
     scores = torch.einsum("bcihd,bcjhd->bcijh", qf, kf) * D
     y_intra = torch.einsum("bcijh,bcjhd->bcihd", scores, vf)
 
