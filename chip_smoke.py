@@ -25,21 +25,30 @@ Phases (every one that fails exits non-zero; there is no CPU path):
    -> ``plan`` -> ``Plan.init_params`` -> ``Plan.step_fn`` on the M=1
    triple and the M=4 star; ``wire="none"`` on the same cuts against
    the vanilla SGD step; the int8-vs-none loss gap.
-5. LM ``fleet-gla`` (zamba stack: 12 Mamba2 blocks, an attention block
+5. The same AlexNet plans through ``Plan.train`` on ``SyntheticImages``
+   (cuDNN held to deterministic algorithms), with a straggler that
+   moves the schedule and lets it come back: finite, falling losses;
+   schedules and simulated walls equal to the loop's numpy planning
+   replayed with no step; a second run bitwise equal; a run killed
+   after step 7 and resumed from its step-6 checkpoint bitwise equal;
+   the ms of each part of a loop step (data batch, host-to-device copy,
+   step, re-solve, checkpoint save and restore), the loop's device idle
+   share from one profiled short run, and ``measure_profile(alexnet())``
+   per cut on the card.
+6. LM ``fleet-gla`` (zamba stack: 12 Mamba2 blocks, an attention block
    every 4, d_model 512, vocab 32,000), T=512, B=64, int8 wire:
    ``Fleet.lm_default(m)`` -> ``plan`` -> ``Plan.step_fn`` on M=1 and
    M=4 through all three kernels; an f32 ``wire="none"`` variant on the
    same cuts against ``reference_sgd_step``; the per-token int8 gap.
-6. LM zamba2-7b at its published widths, depth cut to one group (6
+7. LM zamba2-7b at its published widths, depth cut to one group (6
    Mamba2 blocks + 1 attention block), T=512, B=8: ``plan`` ->
    ``step_fn``, 3 steps through flash attention and the GLA scan.
-   After its checked steps each LM path runs one step under
-   ``torch.profiler``: device busy time against wall time, and the
-   kernels that took the most.  Each path that crosses the int8 wire
-   runs one more step recording the layout of what the codec is handed.
-7. One JSON line of kernels; last, the ``{"ok": true, ...}`` line.
+   After its checked steps each ``step_fn`` path (4, 6, 7) runs one step
+   under ``torch.profiler``: device busy time against wall time, and the
+   kernels that took the most.
+8. One JSON line of kernels; last, the ``{"ok": true, ...}`` line.
 
-Each main path (4, 5 per plan, 6) zeroes every launch counter just
+Each main path (4, 5 and 6 per plan, 7) zeroes every launch counter just
 before its steps and reads them just after, and fails unless each
 kernel of the path launched exactly as often as the schedule's
 executed segments imply.
@@ -53,6 +62,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -600,7 +610,7 @@ def run_plan(torch, api, kernels, cnn, m: int) -> dict:
         fail(f"M={m}: the loss did not fall on a fixed batch: {losses}")
     if launches != want:
         fail(f"M={m}: launches {launches}, expected {want}")
-    prof = profile_step(torch, step, params, x, y, f"M={m}")
+    prof = profile_call(torch, lambda: step(params, x, y), f"M={m}")
     return {"plan": p, "losses": losses, "step_ms": ms,
             "launches": launches, "crossings": n_cross,
             "launches_per_step": {k: v // n_steps for k, v in want.items()},
@@ -698,7 +708,247 @@ def check_int8_gap(torch, hs, run) -> float:
 
 
 # ---------------------------------------------------------------------------
-# Phases 5 and 6: the LM stacks.
+# Phase 5: AlexNet through Plan.train.
+# ---------------------------------------------------------------------------
+
+# The loop trains on SyntheticImages (a new batch every step) at the
+# step_fn phase's lr.  The straggler slows one worker by ``factor`` for
+# steps [2, 6); with re-solves every 2 steps (EMA 0.8) the schedule
+# changes at step 2 and is back by the last step (pinned on the CPU by
+# tests/test_torch_train_loop.py::test_chip_smoke_slowdowns_move_and_restore).
+TRAIN_STEPS, TRAIN_PROFILED_STEPS = 10, 4
+TRAIN_KW = dict(lr=LR, resched_every=2, ema=0.8, seed=SEED)
+TRAIN_SLOW = {1: ("edge", 8.0), 4: ("device_0", 4.0)}
+TRAIN_WINDOW = (2, 6)
+CKPT_EVERY, FAIL_AT = 3, 7
+
+
+def train_slowdown(m: int):
+    worker, factor = TRAIN_SLOW[m]
+    lo, hi = TRAIN_WINDOW
+    return lambda step: {worker: factor} if lo <= step < hi else {}
+
+
+def as_multi(api, sched):
+    return sched if isinstance(sched, api.MultiSchedule) \
+        else api.MultiSchedule.from_schedule(sched)
+
+
+def train_config(loop, p):
+    """The ``HierLoopConfig`` that ``Plan.train(**TRAIN_KW)`` builds."""
+    return loop.HierLoopConfig(
+        total_steps=TRAIN_STEPS, batch=p.B, pipeline_depth=p.pipeline_depth,
+        objective=p.objective, wire=p.wire, **TRAIN_KW)
+
+
+def same_params(torch, a, b) -> bool:
+    return all(torch.equal(u, v) for q, r in zip(a, b)
+               for (_, u), (_, v) in zip(leaves(q), leaves(r)))
+
+
+def train_part_costs(torch, hs, loop, store, p, data, out, tmp) -> dict:
+    """Host and device ms of each part of one loop step, by the calls
+    the loop makes, at this run's schedules: the data batch (host), the
+    pageable host-to-device copy of x, the step (ending in
+    ``synchronize``), a warm re-solve, a checkpoint save and a restore.
+    """
+    cfg = train_config(loop, p)
+    run = step_fn(hs, p)
+    params = p.init_params(seed=SEED)
+    parts = {"batch": [], "h2d": [], "step": []}
+    for k, h in enumerate(out["history"]):
+        t0 = time.perf_counter()
+        b = data.batch(k)
+        parts["batch"].append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = torch.as_tensor(b["x"], device="cuda")
+        y = torch.as_tensor(b["labels"], device="cuda")
+        torch.cuda.synchronize()
+        parts["h2d"].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        params, loss = run(p.model, params, x, y, h["sched"], LR,
+                           wire=p.wire)
+        torch.cuda.synchronize()
+        parts["step"].append((time.perf_counter() - t0) * 1e3)
+    planner = loop._Planner(cfg, None, p.profile, p.network,
+                            topology=p.fleet.topology,
+                            initial_schedule=p.schedule)
+    solve = planner.ops["solve"]
+    parts["resolve"] = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        solve(planner.prof, planner.sched)
+        parts["resolve"].append((time.perf_counter() - t0) * 1e3)
+    tree, extra = planner.state()
+    tree["params"] = params
+    extra.update(step=TRAIN_STEPS, seed=SEED)
+    manager = store.CheckpointManager(str(tmp), keep=1)
+    parts["save"], parts["restore"] = [], []
+    for k in range(3):
+        t0 = time.perf_counter()
+        path = manager.save(k + 1, tree, extra=extra)
+        parts["save"].append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, back, _ = manager.restore_latest_with(
+            lambda step, e: {"params": params, **planner.like(e)})
+        torch.cuda.synchronize()
+        parts["restore"].append((time.perf_counter() - t0) * 1e3)
+        if got != k + 1 or not same_params(torch, back["params"], params):
+            fail("a checkpoint did not restore the params it saved")
+    nbytes = Path(path, "arrays.npz").stat().st_size
+    return {"ms": parts, "x_bytes": int(x.numel() * x.element_size()),
+            "ckpt_bytes": nbytes,
+            "median_ms": {k: statistics.median(v) for k, v in parts.items()}}
+
+
+def run_train(torch, api, loop, store, hs, kernels, cnn, data_mod, m: int,
+              tmp: Path) -> dict:
+    """AlexNet ``Plan.train`` on one fleet with a straggler: the main
+    path (counters zeroed just before, read just after), a second
+    uninterrupted run, a run killed after ``FAIL_AT`` and resumed from
+    its checkpoint, the numpy replay of the planning, the part costs and
+    one profiled short run."""
+    fleet = api.Fleet.from_table2("alexnet", m=m, wire="int8")
+    model = cnn.alexnet()
+    p = api.plan(model, fleet, B)
+    data = data_mod.SyntheticImages(model.input_shape, model.num_classes, B,
+                                    seed=SEED)
+    slow = train_slowdown(m)
+    kw = dict(steps=TRAIN_STEPS, worker_slowdown=slow, **TRAIN_KW)
+    label = f"M={m} Plan.train"
+    print(f"  {label}: plan {p.schedule}; straggler {TRAIN_SLOW[m]} over "
+          f"steps {TRAIN_WINDOW}")
+
+    t0 = time.perf_counter()
+    replay = loop.replay(train_config(loop, p), p.profile, p.network, slow,
+                         topology=p.fleet.topology,
+                         initial_schedule=p.schedule)
+    replay_ms = (time.perf_counter() - t0) * 1e3
+
+    torch.cuda.synchronize()
+    zero_counters(kernels)
+    t0 = time.perf_counter()
+    out = p.train(data, **kw)
+    torch.cuda.synchronize()
+    loop_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counters(kernels)
+    hist = out["history"]
+    per_step = [2 * crossings(as_multi(api, h["sched"])) for h in hist]
+    want = {"int8_quant": sum(per_step), "flash_attention": 0,
+            "gla_scan": 0}
+    losses = [h["loss"] for h in hist]
+    scheds = [h["sched"] for h in hist]
+    changes = [h["step"] for a, h in zip(scheds, hist[1:])
+               if h["sched"] != a]
+    print(f"  {label} losses {losses}")
+    print(f"  {label} walls {[float(h['wall']) for h in hist]}")
+    print(f"  {label} schedules: changed before steps {changes}; final "
+          f"{out['final_schedule']}")
+    print(f"  {label} launches {launches} (expected {want}, per step "
+          f"{per_step}); loop {loop_ms:.1f} ms for {TRAIN_STEPS} steps "
+          f"({loop_ms / TRAIN_STEPS:.1f} ms a step, init included); "
+          f"numpy replay {replay_ms:.1f} ms")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"{label}: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"{label}: the loss did not fall: {losses}")
+    if launches != want:
+        fail(f"{label}: launches {launches}, expected {want}")
+    if [repr(s) for s in scheds] != [repr(r["sched"]) for r in replay] or \
+            [h["wall"] for h in hist] != [r["wall"] for r in replay]:
+        fail(f"{label}: schedules or walls differ from the numpy replay")
+    if not changes or out["final_schedule"] != p.schedule:
+        fail(f"{label}: the straggler did not move the schedule and let "
+             f"it come back (changes before steps {changes})")
+
+    again = p.train(data, **kw)
+    deterministic = same_params(torch, out["params"], again["params"]) \
+        and [h["loss"] for h in again["history"]] == losses
+    print(f"  {label} second uninterrupted run bitwise equal: "
+          f"{deterministic}")
+    if not deterministic:
+        fail(f"{label}: two uninterrupted runs differ")
+    del again
+
+    ckpt = tmp / f"m{m}"
+    try:
+        p.train(data, ckpt_dir=str(ckpt), ckpt_every=CKPT_EVERY,
+                fail_at=FAIL_AT, **kw)
+    except loop.InjectedFailure:
+        pass
+    else:
+        fail(f"{label}: fail_at={FAIL_AT} did not raise")
+    resumed = p.train(data, ckpt_dir=str(ckpt), ckpt_every=CKPT_EVERY, **kw)
+    at = (FAIL_AT // CKPT_EVERY) * CKPT_EVERY
+    tail = [h for h in hist if h["step"] > at]
+    rh = resumed["history"]
+    resume_ok = resumed["resumed_from"] == at and \
+        same_params(torch, out["params"], resumed["params"]) and \
+        len(rh) == len(tail) and \
+        all(a["loss"] == b["loss"] and a["wall"] == b["wall"] and
+            a["sched"] == b["sched"] for a, b in zip(tail, rh)) and \
+        resumed["wall"] == out["wall"]
+    print(f"  {label} killed after step {FAIL_AT}, resumed from "
+          f"{resumed['resumed_from']}: bitwise equal to the uninterrupted "
+          f"run: {resume_ok}")
+    if not resume_ok:
+        fail(f"{label}: the resumed run differs from the uninterrupted one")
+    del resumed
+
+    costs = train_part_costs(torch, hs, loop, store, p, data, out,
+                             tmp / f"costs{m}")
+    print(f"  {label} part ms (median): {costs['median_ms']}; x "
+          f"{costs['x_bytes']} bytes pageable; checkpoint "
+          f"{costs['ckpt_bytes']} bytes")
+    print(f"  {label} part ms per step: {costs['ms']}")
+    prof = profile_call(torch, lambda: p.train(
+        data, steps=TRAIN_PROFILED_STEPS, worker_slowdown=slow, **TRAIN_KW),
+        f"{label} ({TRAIN_PROFILED_STEPS} steps)")
+    idle = None if prof["device_busy_ms"] == 0 else \
+        1.0 - prof["device_busy_ms"] / prof["wall_ms"]
+    print(f"  {label} device idle share over {TRAIN_PROFILED_STEPS} loop "
+          f"steps: {'not measured' if idle is None else idle}")
+    return {"plan": str(p.schedule), "losses": losses,
+            "walls": [float(h["wall"]) for h in hist],
+            "schedules": [str(s) for s in scheds], "changes": changes,
+            "launches": launches,
+            "launches_per_step": {"int8_quant": per_step,
+                                  "flash_attention": 0, "gla_scan": 0},
+            "loop_ms": loop_ms, "replay_ms": replay_ms, "costs": costs,
+            "profile": prof, "idle_share": idle}
+
+
+def check_measure_profile(torch, profiler, cnn, p_analytic) -> dict:
+    """``measure_profile(alexnet())`` on the card at B=64: each cut's
+    forward and backward per sample, beside the analytic Table-II
+    profile the plans use and the rate the forward reached."""
+    stack = cnn.alexnet()
+    prof = profiler.measure_profile(stack, batch=B, repeats=5,
+                                    device="cuda")
+    metas = p_analytic.model.cut_meta()
+    rows = []
+    for i, name in enumerate(prof.layer_names):
+        f_us, b_us = prof.L_f[1, i] * 1e6, prof.L_b[1, i] * 1e6
+        ana = [p_analytic.profile.L_f[j, i] * 1e6 for j in range(3)]
+        rate = metas[i].flops_fwd / prof.L_f[1, i] / 1e12
+        rows.append({"cut": name, "fwd_us_per_sample": f_us,
+                     "bwd_us_per_sample": b_us,
+                     "analytic_fwd_us_device_edge_cloud": ana,
+                     "fwd_tflops": rate})
+        print(f"  {name:6s} measured fwd {f_us:9.3f} us bwd {b_us:9.3f} us "
+              f"per sample ({rate:.2f} TFLOP/s fwd); analytic fwd "
+              f"device/edge/cloud {ana[0]:.1f} / {ana[1]:.1f} / "
+              f"{ana[2]:.2f} us")
+        if not (math.isfinite(f_us) and math.isfinite(b_us) and f_us > 0
+                and b_us > 0):
+            fail(f"measure_profile: cut {name} timed {f_us}, {b_us}")
+    return {"rows": rows, "L_u": prof.L_u.tolist()}
+
+
+# ---------------------------------------------------------------------------
+# Phases 6 and 7: the LM stacks.
 # ---------------------------------------------------------------------------
 
 
@@ -757,25 +1007,25 @@ def lm_steps(torch, kernels, p, params, x, y, lr: float, n_steps: int,
         fail(f"{label}: the loss did not fall on a fixed batch: {losses}")
     if launches != want:
         fail(f"{label}: launches {launches}, expected {want}")
-    prof = profile_step(torch, step, params, x, y, label)
+    prof = profile_call(torch, lambda: step(params, x, y), label)
     return {"losses": losses, "per_token": per_token, "step_ms": ms,
             "peak_bytes": peak, "start_bytes": start, "launches": launches,
             "launches_per_step": per_step, "profile": prof}
 
 
-def profile_step(torch, step, params, x, y, label: str) -> dict:
-    """One more step under ``torch.profiler``: device time by kernel
-    (one stream, so kernels do not overlap) against the step's wall
-    time, and the ten kernels that took the most.  Only the device-side
-    kernel events count: ``key_averages()`` also lists each host-side
-    operator with the device time of the kernels it launched."""
+def profile_call(torch, fn, label: str) -> dict:
+    """``fn()`` under ``torch.profiler``: device time by kernel (one
+    stream, so kernels do not overlap) against the call's wall time, and
+    the ten kernels that took the most.  Only the device-side kernel
+    events count: ``key_averages()`` also lists each host-side operator
+    with the device time of the kernels it launched."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(params, x, y)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -797,7 +1047,7 @@ def profile_step(torch, step, params, x, y, label: str) -> dict:
                            ("int8_quant", "quant_rows"))}
     share = "not measured" if busy == 0 else \
         f"{busy:.2f} ms, {busy / wall:.3f} of the profiled wall"
-    print(f"  {label} profiled step: wall {wall:.2f} ms, device busy "
+    print(f"  {label} profiled: wall {wall:.2f} ms, device busy "
           f"{share}; our kernels {ours}")
     for r in top:
         print(f"    {r['ms']:9.3f} ms  x{r['count']:<5d} {r['name']}")
@@ -900,8 +1150,11 @@ def main() -> int:
     root = Path(__file__).resolve().parent
     sys.path.insert(0, str(root / "src"))
     from repro_torch import api
+    from repro_torch import data as data_mod
+    from repro_torch.checkpoint import store
     from repro_torch.configs import zamba2_7b
     from repro_torch.core import hybrid_step as hs
+    from repro_torch.core import profiler
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gla_scan as gs
@@ -910,6 +1163,7 @@ def main() -> int:
     from repro_torch.models import cnn
     from repro_torch.models.lm.fleet_configs import FLEET_GLA
     from repro_torch.models.lm.layerstack import lm_layerstack
+    from repro_torch.train import loop
     kernels = {"int8_quant": iq, "flash_attention": fa, "gla_scan": gs}
 
     # 1. card
@@ -955,7 +1209,27 @@ def main() -> int:
     for m, r in runs.items():
         print(f"  M={m} step ms {steady(r['step_ms'])}")
 
-    # 5. LM fleet-gla
+    # 5. AlexNet through Plan.train, cuDNN held to deterministic algorithms
+    print(f"main path: AlexNet Plan.train, B={B}, wire=int8, "
+          f"{TRAIN_STEPS} steps, lr {LR}")
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            train_runs = {m: run_train(torch, api, loop, store, hs, kernels,
+                                       cnn, data_mod, m, Path(tmp))
+                          for m in (1, 4)}
+        print("measure_profile(alexnet()) on the card, B=64:")
+        measured = check_measure_profile(torch, profiler, cnn,
+                                         runs[1]["plan"])
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    torch.cuda.empty_cache()
+
+    # 6. LM fleet-gla
     print(f"main path: LM fleet-gla, T={LM_T}, B={LM_B}, wire=int8, "
           f"lr {LM_LR}")
     gla_stack = lm_layerstack(FLEET_GLA, LM_T, backend="cuda")
@@ -964,7 +1238,7 @@ def main() -> int:
     for m, r in lm_runs.items():
         print(f"  fleet-gla M={m} step ms {steady(r['step_ms'])}")
 
-    # 6. zamba2-7b, full width, one group deep
+    # 7. zamba2-7b, full width, one group deep
     z7cfg = zamba2_7b.FULL.variant(n_layers=6, shared_attn_every=6)
     print(f"main path: zamba2-7b widths, n_layers=6 + 1 attention block, "
           f"T={LM_T}, B={Z7_B}, lr {Z7_LR}")
@@ -973,6 +1247,8 @@ def main() -> int:
     print(f"  zamba2-7b step ms {steady(z7['step_ms'])}")
 
     path_runs = {"alexnet_M1": runs[1], "alexnet_M4": runs[4],
+                 "alexnet_train_M1": train_runs[1],
+                 "alexnet_train_M4": train_runs[4],
                  "fleet_gla_M1": lm_runs[1], "fleet_gla_M4": lm_runs[4],
                  "zamba2_7b": z7}
     paths = {k: r["launches"] for k, r in path_runs.items()}
@@ -987,13 +1263,15 @@ def main() -> int:
                     for m, r in runs.items()},
         "fleet_gla": {str(m): {k: v for k, v in r.items()}
                       for m, r in lm_runs.items()},
+        "alexnet_train": {str(m): r for m, r in train_runs.items()},
+        "measure_profile": measured,
         "zamba2_7b": z7, "launches": paths,
         "tensor_cores": tensor_cores,
         "quantizer_cases": list(qcases.values()),
         "flash_cases": list(fcases.values()),
         "gla_cases": list(gcases.values())}, default=str))
 
-    # 7. kernels line
+    # 8. kernels line
     def entry(name, source, replaces, main, cases, ok_key):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,

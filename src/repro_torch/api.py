@@ -13,23 +13,25 @@ package; execution runs the hybrid-SGD step in PyTorch on the card::
     step = p.step_fn(lr=0.05)                          # hybrid SGD step
     params, loss = step(params, x, y)
 
-``step_fn`` and ``init_params`` default to ``device="cuda"`` and raise
-when there is no card; pass ``device="cpu"`` to run on the CPU.  This
-slice executes the triple and the star; the tree step, ``simulate``,
-``baseline``, ``explain``, ``train`` and ``plan_many`` come later (see
-ROADMAP.md).
+    out = p.train(data, steps=100)                     # straggler-aware loop
+
+``step_fn``, ``init_params`` and ``train`` default to ``device="cuda"``
+and raise when there is no card; pass ``device="cpu"`` to run on the
+CPU.  This slice executes the triple and the star; the tree step (and
+so ``train`` on a tree fleet), ``simulate``, ``baseline``, ``explain``
+and ``plan_many`` come later (see ROADMAP.md).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Union
+from typing import Any, Callable, Dict, Optional, Union
 
 import torch
 
 from repro_torch.core import pipeline as _pipeline
 from repro_torch.core import scheduler as _scheduler
 from repro_torch.core.cost_model import Breakdown, MultiSchedule, Schedule
-from repro_torch.core.fleet import TREE, TRIPLE, Fleet
+from repro_torch.core.fleet import STAR, TREE, TRIPLE, Fleet
 from repro_torch.core.hybrid_step import (hybrid_step_from_schedule,
                                           multi_hybrid_step_from_schedule)
 from repro_torch.core.layerstack import LayerStack, as_layerstack
@@ -164,9 +166,54 @@ class Plan:
     def explain(self) -> str:
         raise _later("Plan.explain", "simulator/baselines copies")
 
-    def train(self, *args, **kwargs):
-        raise _later("Plan.train", "Plan.train (train/loop.py, "
-                     "checkpoint/store.py, optim, measure_profile)")
+    def train(self, data, steps: int, lr: float = 0.05,
+              resched_every: int = 20, ema: float = 0.3, seed: int = 0,
+              worker_slowdown: Optional[Callable[[int], Dict[str, float]]]
+              = None,
+              log: Optional[Callable[[str], None]] = None, *,
+              churn=None, ckpt_dir: Optional[str] = None,
+              ckpt_every: int = 50, keep: int = 3,
+              fail_at: Optional[int] = None,
+              device: Optional[Union[str, torch.device]] = None
+              ) -> Dict[str, Any]:
+        """Straggler-aware HierTrain loop: real hybrid steps on
+        ``device`` (default ``cuda``) for the numerics, the calibrated
+        cost model for the wall clock, online EMA re-profiling +
+        re-scheduling every ``resched_every`` steps, and pipelined
+        fill+period accounting when the plan was built with
+        ``pipeline_depth > 1``.  Returns ``{params, history, wall,
+        final_schedule, resumed_from, churn_log}``; schedules, walls and
+        the churn log equal :meth:`repro.api.Plan.train`'s.
+
+        ``churn`` — a :class:`repro_torch.core.churn.ChurnTrace` of
+        membership events for elastic star fleets (DESIGN.md §10);
+        raises ``NotImplementedError`` naming the topology on any other
+        fleet.  ``ckpt_dir``/``ckpt_every``/``keep`` enable atomic keep-N
+        checkpointing and crash-safe resume: rerun the same call after a
+        crash and the loop restores the newest checkpoint and continues,
+        bitwise equal to an uninterrupted run.  ``fail_at`` injects a
+        failure after that step (testing)."""
+        from repro_torch.train.loop import HierLoopConfig, _run_loop
+        if churn is not None and self.fleet.topology != STAR:
+            raise NotImplementedError(
+                "churn (elastic membership) is only implemented for the "
+                f"star topology; this plan's fleet is "
+                f"topology={self.fleet.topology!r}")
+        if self.fleet.topology == TREE:
+            raise _later("Plan.train on a tree fleet", "the tree step + "
+                         "_sharded_tail_grads")
+        stack = self._require_model()
+        dev = _resolve_device(device)
+        cfg = HierLoopConfig(
+            total_steps=steps, batch=self.B, lr=lr,
+            resched_every=resched_every, ema=ema, seed=seed,
+            pipeline_depth=self.pipeline_depth, objective=self.objective,
+            wire=self.wire, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
+            keep=keep, fail_at=fail_at)
+        return _run_loop(cfg, stack, self.profile, self.network, data,
+                         worker_slowdown, log,
+                         topology=self.fleet.topology, device=dev,
+                         initial_schedule=self.schedule, churn=churn)
 
 
 def _prepare(model, fleet: Fleet, wire: Optional[str]):

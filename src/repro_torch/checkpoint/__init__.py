@@ -1,0 +1,6 @@
+"""Atomic keep-N checkpoints in the JAX package's on-disk format."""
+from repro_torch.checkpoint.store import (CheckpointManager, latest_step,
+                                          load_checkpoint, save_checkpoint)
+
+__all__ = ["CheckpointManager", "latest_step", "load_checkpoint",
+           "save_checkpoint"]

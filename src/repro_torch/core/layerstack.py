@@ -20,7 +20,7 @@ of cut-points:
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -102,6 +102,8 @@ class LayerStack:
       which is what makes the distributed update exactly batch-B SGD).
     * :meth:`default_sample_bytes` — bytes of one training sample
       (input + label), the profile's ``Q``.
+    * :meth:`dummy_batch` — a seeded ``(x, labels)`` batch for
+      measurement and smoke paths.
     """
 
     name: str = "layerstack"
@@ -126,6 +128,10 @@ class LayerStack:
 
     def sum_loss(self, out: torch.Tensor, labels: torch.Tensor
                  ) -> torch.Tensor:
+        raise NotImplementedError
+
+    def dummy_batch(self, generator: torch.Generator, batch: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         raise NotImplementedError
 
     # ---- conveniences shared by every adapter --------------------------
@@ -184,6 +190,17 @@ class CnnLayerStack(LayerStack):
                  ) -> torch.Tensor:
         logp = torch.log_softmax(logits, dim=-1)
         return -logp.gather(1, labels.long()[:, None]).sum()
+
+    def dummy_batch(self, generator: torch.Generator, batch: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Standard-normal images and uniform labels on the generator's
+        device."""
+        dev = generator.device
+        x = torch.randn((batch,) + tuple(self.model.input_shape),
+                        generator=generator, device=dev)
+        y = torch.randint(0, self.model.num_classes, (batch,),
+                          generator=generator, device=dev)
+        return x, y
 
 
 def as_layerstack(model: Any) -> LayerStack:

@@ -50,6 +50,10 @@ def test_port_has_files_to_scan():
     assert "src/repro_torch/api.py" in names
     assert "src/repro_torch/core/hybrid_step.py" in names
     assert "src/repro_torch/models/lm/layerstack.py" in names
+    assert "src/repro_torch/train/loop.py" in names
+    assert "src/repro_torch/checkpoint/store.py" in names
+    assert "src/repro_torch/data/pipeline.py" in names
+    assert "src/repro_torch/core/churn.py" in names
     assert (ROOT / "chip_smoke.py").exists()
 
 
@@ -69,6 +73,9 @@ def test_importing_the_port_loads_no_jax_or_repro():
         "import repro_torch.models.lm.layerstack\n"
         "import repro_torch.configs.zamba2_7b\n"
         "import repro_torch.models.lm.fleet_configs\n"
+        "import repro_torch.train.loop, repro_torch.checkpoint.store\n"
+        "import repro_torch.data.pipeline, repro_torch.core.churn\n"
+        "import repro_torch.core.profiler\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
         "'repro', 'ml_dtypes') or m.startswith(('jax.', 'jaxlib.', "
         "'repro.', 'ml_dtypes.')))\n"
