@@ -12,7 +12,9 @@ Phases (every one that fails exits non-zero; there is no CPU path):
    ``cuobjdump -sass``, beside its registers and spills: every
    tensor-core (``*_bf16``) one must have some.
 3. Kernels vs their plain versions, on the card, at the main paths'
-   shapes and a few more: both int8 entries (``quantize_int8`` and the
+   shapes and a few more (the quantizer's AlexNet rows are derived from
+   the plans of phases 4, 5 and 8 and their loops' numpy replays): both
+   int8 entries (``quantize_int8`` and the
    wire's fused ``wire_qdq_int8``, the latter also timed against the
    composition it replaced) bitwise, NaN, +-inf, ragged and misaligned
    rows included; flash attention and the GLA scan within the ``TOL``
@@ -43,15 +45,25 @@ Phases (every one that fails exits non-zero; there is no CPU path):
 7. LM zamba2-7b at its published widths, depth cut to one group (6
    Mamba2 blocks + 1 attention block), T=512, B=8: ``plan`` ->
    ``step_fn``, 3 steps through flash attention and the GLA scan.
-   After its checked steps each ``step_fn`` path (4, 6, 7) runs one step
-   under ``torch.profiler``: device busy time against wall time, and the
-   kernels that took the most.
-8. One JSON line of kernels; last, the ``{"ok": true, ...}`` line.
+   After its checked steps each ``step_fn`` path (4, 6, 7, 8) runs one
+   step under ``torch.profiler``: device busy time against wall time, and
+   the kernels that took the most.
+8. AlexNet on the fleets of benchmarks/fig_tree.py:29-31 (M=4, a 2 Mbps
+   backhaul per edge, E = 1, 2, 4 edge servers), B=64, int8 wire:
+   ``plan`` -> ``Plan.step_fn``, ten steps per plan with the quantizer's
+   launches read after every step (2 per stream crossing that carries
+   samples); ``wire="none"`` on the same cuts against vanilla SGD; the
+   int8-vs-none loss gap; ``p.explain()`` and ``p.simulate()``.  At E=1
+   the tree step and the star step, from the same params and batch under
+   ``cudnn.deterministic``, must be bitwise equal.  Then phase 5's
+   ``Plan.train`` checks on the E=2 tree, with its own straggler.
+9. One JSON line of kernels; last, the ``{"ok": true, ...}`` line.
 
-Each main path (4, 5 and 6 per plan, 7) zeroes every launch counter just
-before its steps and reads them just after, and fails unless each
-kernel of the path launched exactly as often as the schedule's
-executed segments imply.
+Each main path (4, 5 and 6 per plan, 7, 8 per plan) zeroes every launch
+counter just before its steps and reads them just after, and fails
+unless each kernel of the path launched exactly as often as the
+schedule's executed segments imply; an AlexNet path that sends the
+quantizer a row count phase 3 did not hold fails too.
 """
 from __future__ import annotations
 
@@ -242,15 +254,17 @@ def quant_bound(M: int, N: int, x_bytes: int, u_tensor: bool,
                  H100_F32_FLOP_PER_S)
 
 
-def quant_cases(torch, dev, g) -> list:
+def quant_cases(torch, dev, g, alexnet_rows) -> list:
     """``(name, x, u)`` of the quantizer phase: the main paths' wire
-    shapes (AlexNet f32 39/33/6/5/4 x 50,176; fleet-gla bf16 35/38 x
-    262,144), a ragged f32 row, a 1x1, a zero row, a bf16 block, a NaN
+    shapes (AlexNet f32 ``alexnet_rows`` x 50,176, as
+    :func:`alexnet_wire_rows` derives them; fleet-gla bf16 35/38 x
+    262,144),
+    a ragged f32 row, a 1x1, a zero row, a bf16 block, a NaN
     row with a row holding +-inf, a bf16 row length that is not a whole
     number of 16-byte vectors, and x at a storage offset, so its data
     pointer is off 16-byte alignment."""
     cases = []
-    for m in (39, 33, 6, 5, 4):                   # AlexNet's wire rows
+    for m in alexnet_rows:
         cases.append((f"wire_{m}x{WIRE_SHAPE_N}", torch.randn(
             m, WIRE_SHAPE_N, generator=g, device=dev), 0.5))
     for m in (35, 38):                            # fleet-gla's wire rows
@@ -316,7 +330,7 @@ def max_err(torch, got, want) -> float:
     return float((g[keep] - w[keep]).abs().max()) if keep.any() else 0.0
 
 
-def check_quantizer(torch, iq, ref) -> dict:
+def check_quantizer(torch, iq, ref, alexnet_rows) -> dict:
     """Both entries of the int8 kernel against their plain versions,
     bitwise: ``quantize_int8`` on every case, the wire's fused
     ``wire_qdq_int8`` on every case with u = 0.5, timed beside the
@@ -332,7 +346,7 @@ def check_quantizer(torch, iq, ref) -> dict:
         fail(f"the kernels' division differs from the IEEE one on {bad} "
              f"quotients")
     rows = {}
-    for name, x, u in quant_cases(torch, dev, g):
+    for name, x, u in quant_cases(torch, dev, g, alexnet_rows):
         M, N = x.shape
         utensor = isinstance(u, torch.Tensor)
         S = iq.plan_slices(M, N, x.element_size())[0]
@@ -555,6 +569,15 @@ def crossings(sched) -> int:
     return n + (1 if sched.m_l > 0 and sched.b_l > 0 else 0)
 
 
+def wire_rows(sched) -> set:
+    """Row counts the quantizer sees on a schedule's crossings (forward
+    and cotangent alike): the batch of each stream counted by
+    :func:`crossings`."""
+    rows = {b for m, b in zip(sched.m_s, sched.b_s) if m > 0 and b > 0}
+    return rows | ({sched.b_l} if sched.m_l > 0 and sched.b_l > 0
+                   else set())
+
+
 def batch(torch):
     """One fixed seeded batch: every step trains on it, so the loss must
     fall."""
@@ -573,52 +596,62 @@ def read_counters(kernels) -> dict:
     return {name: mod.launches for name, mod in kernels.items()}
 
 
-def run_plan(torch, api, kernels, cnn, m: int) -> dict:
+def run_plan(torch, api, kernels, cnn, fleet, label: str,
+             n_steps: int = STEPS + TIMED_STEPS) -> dict:
     """AlexNet for one fleet: plan, then int8 steps through Plan.step_fn
-    (``STEPS`` checked, ``TIMED_STEPS`` more for the step time), with the
-    launch counters zeroed just before and read just after, and one
-    profiled step."""
-    fleet = api.Fleet.from_table2("alexnet", m=m, wire="int8")
+    (``STEPS`` checked, the rest for the step time), with the launch
+    counters zeroed just before, read after every step and just after,
+    and one profiled step."""
+    t0 = time.perf_counter()
     p = api.plan(cnn.alexnet(), fleet, B)
+    plan_ms = (time.perf_counter() - t0) * 1e3
     sched = p.multi_schedule
-    print(f"  M={m} plan: {p.schedule}  T_total={p.t_total!r} s (model)")
+    print(f"  {label} plan: {p.schedule}  T_total={p.t_total!r} s (model); "
+          f"planned in {plan_ms:.1f} ms")
     n_cross = crossings(sched)
     if n_cross == 0:
-        fail(f"M={m}: the plan crosses no int8 wire (m > 0, b > 0)")
+        fail(f"{label}: the plan crosses no int8 wire (m > 0, b > 0)")
     params = p.init_params(seed=SEED)
     step = p.step_fn(lr=LR)
     x, y = batch(torch)
-    n_steps = STEPS + TIMED_STEPS
-    losses, ms = [], []
+    losses, ms, per_step = [], [], []
     zero_counters(kernels)
     for _ in range(n_steps):
+        before = read_counters(kernels)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         params, loss = step(params, x, y)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(float(loss))
+        per_step.append({k: v - before[k]
+                         for k, v in read_counters(kernels).items()})
     launches = read_counters(kernels)
-    want = {"int8_quant": 2 * n_cross * n_steps, "flash_attention": 0,
-            "gla_scan": 0}
-    print(f"  M={m} losses {losses}")
-    print(f"  M={m} step ms {ms}")
-    print(f"  M={m} launches {launches} (expected {want})")
+    one = {"int8_quant": 2 * n_cross, "flash_attention": 0, "gla_scan": 0}
+    want = {k: v * n_steps for k, v in one.items()}
+    print(f"  {label} losses {losses}")
+    print(f"  {label} step ms {ms}")
+    print(f"  {label} launches {launches} (expected {want})")
     if not all(math.isfinite(v) for v in losses):
-        fail(f"M={m}: non-finite loss {losses}")
+        fail(f"{label}: non-finite loss {losses}")
     if not losses[STEPS - 1] < losses[0]:
-        fail(f"M={m}: the loss did not fall on a fixed batch: {losses}")
-    if launches != want:
-        fail(f"M={m}: launches {launches}, expected {want}")
-    prof = profile_call(torch, lambda: step(params, x, y), f"M={m}")
-    return {"plan": p, "losses": losses, "step_ms": ms,
+        fail(f"{label}: the loss did not fall on a fixed batch: {losses}")
+    if launches != want or any(s != one for s in per_step):
+        fail(f"{label}: launches {launches} ({per_step} per step), "
+             f"expected {want}")
+    prof = profile_call(torch, lambda: step(params, x, y), label)
+    return {"plan": p, "plan_ms": plan_ms, "losses": losses, "step_ms": ms,
             "launches": launches, "crossings": n_cross,
-            "launches_per_step": {k: v // n_steps for k, v in want.items()},
-            "profile": prof}
+            "wire_rows": sorted(wire_rows(sched)),
+            "launches_per_step": one, "profile": prof}
 
 
 def step_fn(hs, p):
-    """The engine ``Plan.step_fn`` runs for ``p``'s topology."""
+    """The engine ``Plan.step_fn`` runs for ``p``'s topology, as a
+    function of the schedule (a tree derives its stream->edge map from
+    each schedule, as ``Plan.train`` does)."""
+    if p.fleet.topology == "tree":
+        return hs.tree_schedule_step(p.profile, p.network)
     return hs.hybrid_step_from_schedule if p.fleet.topology == "triple" \
         else hs.multi_hybrid_step_from_schedule
 
@@ -715,18 +748,30 @@ def check_int8_gap(torch, hs, run) -> float:
 # step_fn phase's lr.  The straggler slows one worker by ``factor`` for
 # steps [2, 6); with re-solves every 2 steps (EMA 0.8) the schedule
 # changes at step 2 and is back by the last step (pinned on the CPU by
-# tests/test_torch_train_loop.py::test_chip_smoke_slowdowns_move_and_restore).
+# tests/test_torch_train_loop.py::test_chip_smoke_slowdowns_move_and_restore
+# and, for the E=2 tree, tests/test_torch_facade.py).  Keys: M of the
+# Table-II fleet, or the label of a tree path.
 TRAIN_STEPS, TRAIN_PROFILED_STEPS = 10, 4
 TRAIN_KW = dict(lr=LR, resched_every=2, ema=0.8, seed=SEED)
-TRAIN_SLOW = {1: ("edge", 8.0), 4: ("device_0", 4.0)}
+TRAIN_SLOW = {1: ("edge", 8.0), 4: ("device_0", 4.0),
+              "tree E=2": ("device_1", 2.0)}
 TRAIN_WINDOW = (2, 6)
 CKPT_EVERY, FAIL_AT = 3, 7
+TREE_STEPS = 10                   # step_fn steps per tree plan
+TREE_EDGES = (1, 2, 4)
 
 
-def train_slowdown(m: int):
-    worker, factor = TRAIN_SLOW[m]
+def train_slowdown(key):
+    worker, factor = TRAIN_SLOW[key]
     lo, hi = TRAIN_WINDOW
     return lambda step: {worker: factor} if lo <= step < hi else {}
+
+
+def tree_fleet(api, e: int):
+    """benchmarks/fig_tree.py:29-31's fleet: AlexNet's Table-II testbed,
+    M=4, a 2 Mbps backhaul per edge, ``e`` edge servers; the int8 wire."""
+    return api.Fleet.from_table2("alexnet", m=4, edge_cloud_mbps=2.0,
+                                 topology="tree", n_edges=e, wire="int8")
 
 
 def as_multi(api, sched):
@@ -803,22 +848,21 @@ def train_part_costs(torch, hs, loop, store, p, data, out, tmp) -> dict:
             "median_ms": {k: statistics.median(v) for k, v in parts.items()}}
 
 
-def run_train(torch, api, loop, store, hs, kernels, cnn, data_mod, m: int,
-              tmp: Path) -> dict:
+def run_train(torch, api, loop, store, hs, kernels, cnn, data_mod, fleet,
+              key, tmp: Path) -> dict:
     """AlexNet ``Plan.train`` on one fleet with a straggler: the main
     path (counters zeroed just before, read just after), a second
     uninterrupted run, a run killed after ``FAIL_AT`` and resumed from
     its checkpoint, the numpy replay of the planning, the part costs and
-    one profiled short run."""
-    fleet = api.Fleet.from_table2("alexnet", m=m, wire="int8")
+    one profiled short run.  ``key`` picks the straggler (TRAIN_SLOW)."""
     model = cnn.alexnet()
     p = api.plan(model, fleet, B)
     data = data_mod.SyntheticImages(model.input_shape, model.num_classes, B,
                                     seed=SEED)
-    slow = train_slowdown(m)
+    slow = train_slowdown(key)
     kw = dict(steps=TRAIN_STEPS, worker_slowdown=slow, **TRAIN_KW)
-    label = f"M={m} Plan.train"
-    print(f"  {label}: plan {p.schedule}; straggler {TRAIN_SLOW[m]} over "
+    label = f"{f'M={key}' if isinstance(key, int) else key} Plan.train"
+    print(f"  {label}: plan {p.schedule}; straggler {TRAIN_SLOW[key]} over "
           f"steps {TRAIN_WINDOW}")
 
     t0 = time.perf_counter()
@@ -872,7 +916,7 @@ def run_train(torch, api, loop, store, hs, kernels, cnn, data_mod, m: int,
         fail(f"{label}: two uninterrupted runs differ")
     del again
 
-    ckpt = tmp / f"m{m}"
+    ckpt = tmp / f"m{key}".replace(" ", "_")
     try:
         p.train(data, ckpt_dir=str(ckpt), ckpt_every=CKPT_EVERY,
                 fail_at=FAIL_AT, **kw)
@@ -898,7 +942,7 @@ def run_train(torch, api, loop, store, hs, kernels, cnn, data_mod, m: int,
     del resumed
 
     costs = train_part_costs(torch, hs, loop, store, p, data, out,
-                             tmp / f"costs{m}")
+                             tmp / f"costs{key}".replace(" ", "_"))
     print(f"  {label} part ms (median): {costs['median_ms']}; x "
           f"{costs['x_bytes']} bytes pageable; checkpoint "
           f"{costs['ckpt_bytes']} bytes")
@@ -913,6 +957,8 @@ def run_train(torch, api, loop, store, hs, kernels, cnn, data_mod, m: int,
     return {"plan": str(p.schedule), "losses": losses,
             "walls": [float(h["wall"]) for h in hist],
             "schedules": [str(s) for s in scheds], "changes": changes,
+            "wire_rows": sorted(set().union(
+                *(wire_rows(as_multi(api, s)) for s in scheds))),
             "launches": launches,
             "launches_per_step": {"int8_quant": per_step,
                                   "flash_attention": 0, "gla_scan": 0},
@@ -945,6 +991,79 @@ def check_measure_profile(torch, profiler, cnn, p_analytic) -> dict:
                 and b_us > 0):
             fail(f"measure_profile: cut {name} timed {f_us}, {b_us}")
     return {"rows": rows, "L_u": prof.L_u.tolist()}
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: AlexNet on fig_tree's fleets.
+# ---------------------------------------------------------------------------
+
+
+def alexnet_wire_rows(api, loop, cnn) -> tuple:
+    """The row counts the AlexNet paths (phases 4, 5 and 8) send through
+    the quantizer, derived from the plans they drive and, on the
+    ``Plan.train`` paths, from every schedule of the loop's numpy replay
+    (the straggler moves the schedule).  Phase 3 holds each of them
+    bitwise; phase 9 fails on any other."""
+    paths = [(api.Fleet.from_table2("alexnet", m=m, wire="int8"), m)
+             for m in (1, 4)]
+    paths += [(tree_fleet(api, e), f"tree E={e}") for e in TREE_EDGES]
+    rows = set()
+    for fleet, key in paths:
+        p = api.plan(cnn.alexnet(), fleet, B)
+        rows |= wire_rows(p.multi_schedule)
+        if key in TRAIN_SLOW:
+            for r in loop.replay(train_config(loop, p), p.profile,
+                                 p.network, train_slowdown(key),
+                                 topology=p.fleet.topology,
+                                 initial_schedule=p.schedule):
+                rows |= wire_rows(as_multi(api, r["sched"]))
+    return tuple(sorted(rows, reverse=True))
+
+
+def explain_plan(p, label: str) -> dict:
+    """``p.explain()`` and ``p.simulate()`` of one plan, printed."""
+    text = p.explain()
+    sim = p.simulate()
+    print(f"  {label} explain():")
+    for line in text.splitlines():
+        print(f"    {line}")
+    print(f"  {label} simulate(): {sim!r} s (T_total {p.t_total!r} s); "
+          f"stream edges {p.stream_edges()}")
+    return {"simulate": sim, "t_total": p.t_total,
+            "stream_edges": list(p.stream_edges())}
+
+
+def check_tree_e1_bitwise(torch, api, cnn) -> dict:
+    """At E=1 every stream sits on edge 0 and the tree step runs the
+    star's arithmetic: two steps of the E=1 tree plan and of the star
+    plan of the same fleet, from the same params and batch (cuDNN held to
+    deterministic algorithms by the caller), must give bitwise equal
+    losses and params."""
+    tree = api.plan(cnn.alexnet(), tree_fleet(api, 1), B)
+    star = api.plan(cnn.alexnet(), api.Fleet.from_table2(
+        "alexnet", m=4, edge_cloud_mbps=2.0, topology="star", wire="int8"),
+        B)
+    if tree.multi_schedule != star.multi_schedule or \
+            set(tree.stream_edges()) != {0}:
+        fail(f"tree E=1: plan {tree.schedule} on edges "
+             f"{tree.stream_edges()} is not the star's {star.schedule}")
+    x, y = batch(torch)
+    runs = []
+    for p in (tree, star):
+        params, step, losses = p.init_params(seed=SEED), p.step_fn(lr=LR), []
+        for _ in range(2):
+            params, loss = step(params, x, y)
+            losses.append(loss)
+        runs.append((params, losses))
+    torch.cuda.synchronize()
+    equal = same_params(torch, runs[0][0], runs[1][0]) and \
+        all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    losses = [float(v) for v in runs[0][1]]
+    print(f"  tree E=1 vs star, 2 steps from the same params and batch: "
+          f"bitwise equal {equal}; losses {losses}")
+    if not equal:
+        fail("tree E=1: the tree step differs from the star step")
+    return {"plan": str(tree.schedule), "equal": equal, "losses": losses}
 
 
 # ---------------------------------------------------------------------------
@@ -1191,8 +1310,13 @@ def main() -> int:
         tensor_cores[name] = tensor_core_use(_build, built[name]["log"], name)
 
     # 3. kernels vs plain versions
+    t0 = time.perf_counter()
+    alexnet_rows = alexnet_wire_rows(api, loop, cnn)
+    print(f"AlexNet wire rows, from phases 4, 5 and 8's plans and loop "
+          f"replays: {alexnet_rows} "
+          f"({(time.perf_counter() - t0) * 1e3:.0f} ms)")
     print("int8_quant, both entries, vs plain versions (bitwise):")
-    qcases = check_quantizer(torch, iq, ref)
+    qcases = check_quantizer(torch, iq, ref, alexnet_rows)
     print("flash_attention vs plain version (TOL rule):")
     fcases = check_flash(torch, fa, ref)
     print("gla_scan vs plain version (TOL rule):")
@@ -1203,7 +1327,9 @@ def main() -> int:
 
     # 4. AlexNet
     print("main path: AlexNet 224x224, B=64, wire=int8")
-    runs = {m: run_plan(torch, api, kernels, cnn, m) for m in (1, 4)}
+    runs = {m: run_plan(torch, api, kernels, cnn,
+                        api.Fleet.from_table2("alexnet", m=m, wire="int8"),
+                        f"M={m}") for m in (1, 4)}
     ref_gap = {m: check_reference(torch, hs, runs[m]) for m in (1, 4)}
     int8_gap = {m: check_int8_gap(torch, hs, runs[m]) for m in (1, 4)}
     for m, r in runs.items():
@@ -1218,9 +1344,10 @@ def main() -> int:
     torch.backends.cudnn.benchmark = False
     try:
         with tempfile.TemporaryDirectory() as tmp:
-            train_runs = {m: run_train(torch, api, loop, store, hs, kernels,
-                                       cnn, data_mod, m, Path(tmp))
-                          for m in (1, 4)}
+            train_runs = {m: run_train(
+                torch, api, loop, store, hs, kernels, cnn, data_mod,
+                api.Fleet.from_table2("alexnet", m=m, wire="int8"), m,
+                Path(tmp)) for m in (1, 4)}
         print("measure_profile(alexnet()) on the card, B=64:")
         measured = check_measure_profile(torch, profiler, cnn,
                                          runs[1]["plan"])
@@ -1246,12 +1373,49 @@ def main() -> int:
                        lm_layerstack(z7cfg, LM_T, backend="cuda"))
     print(f"  zamba2-7b step ms {steady(z7['step_ms'])}")
 
+    # 8. AlexNet on fig_tree's fleets: step_fn per E, then Plan.train
+    print(f"main path: AlexNet on fig_tree's fleets (M=4, 2 Mbps backhaul "
+          f"per edge, E in {TREE_EDGES}), B={B}, wire=int8")
+    tree_runs, tree_info = {}, {}
+    for e in TREE_EDGES:
+        label = f"tree E={e}"
+        tree_runs[e] = run_plan(torch, api, kernels, cnn, tree_fleet(api, e),
+                                label, n_steps=TREE_STEPS)
+        tree_info[e] = {"reference": check_reference(torch, hs, tree_runs[e]),
+                        "int8_loss_gap": check_int8_gap(torch, hs,
+                                                        tree_runs[e]),
+                        **explain_plan(tree_runs[e]["plan"], label)}
+    for e, r in tree_runs.items():
+        print(f"  tree E={e} step ms {steady(r['step_ms'])}")
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        tree_e1 = check_tree_e1_bitwise(torch, api, cnn)
+        print(f"main path: AlexNet Plan.train on the E=2 tree, B={B}, "
+              f"wire=int8, {TRAIN_STEPS} steps, lr {LR}")
+        with tempfile.TemporaryDirectory() as tmp:
+            tree_train = run_train(torch, api, loop, store, hs, kernels, cnn,
+                                   data_mod, tree_fleet(api, 2), "tree E=2",
+                                   Path(tmp))
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    torch.cuda.empty_cache()
+
     path_runs = {"alexnet_M1": runs[1], "alexnet_M4": runs[4],
                  "alexnet_train_M1": train_runs[1],
                  "alexnet_train_M4": train_runs[4],
                  "fleet_gla_M1": lm_runs[1], "fleet_gla_M4": lm_runs[4],
-                 "zamba2_7b": z7}
+                 "zamba2_7b": z7,
+                 **{f"alexnet_tree_E{e}": r for e, r in tree_runs.items()},
+                 "alexnet_train_tree_E2": tree_train}
     paths = {k: r["launches"] for k, r in path_runs.items()}
+    held = set(alexnet_rows)
+    seen = {k: r["wire_rows"] for k, r in path_runs.items()
+            if k.startswith("alexnet")}
+    print(f"AlexNet wire rows by path {seen}; phase 3 held {sorted(held)}")
+    if not set().union(*map(set, seen.values())) <= held:
+        fail(f"an AlexNet path quantized rows phase 3 did not hold: {seen}")
     for name in kernels:
         if all(counts[name] == 0 for counts in paths.values()):
             fail(f"{name} never launched on a main path")
@@ -1264,6 +1428,15 @@ def main() -> int:
         "fleet_gla": {str(m): {k: v for k, v in r.items()}
                       for m, r in lm_runs.items()},
         "alexnet_train": {str(m): r for m, r in train_runs.items()},
+        "alexnet_tree": {str(e): {"plan": str(r["plan"].schedule),
+                                  "plan_ms": r["plan_ms"],
+                                  "step_ms": r["step_ms"],
+                                  "losses": r["losses"],
+                                  "crossings": r["crossings"],
+                                  "profile": r["profile"], **tree_info[e]}
+                         for e, r in tree_runs.items()},
+        "alexnet_tree_e1_vs_star": tree_e1,
+        "alexnet_train_tree_E2": tree_train,
         "measure_profile": measured,
         "zamba2_7b": z7, "launches": paths,
         "tensor_cores": tensor_cores,
@@ -1271,7 +1444,7 @@ def main() -> int:
         "flash_cases": list(fcases.values()),
         "gla_cases": list(gcases.values())}, default=str))
 
-    # 8. kernels line
+    # 9. kernels line
     def entry(name, source, replaces, main, cases, ok_key):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,

@@ -17,9 +17,14 @@ package; execution runs the hybrid-SGD step in PyTorch on the card::
 
 ``step_fn``, ``init_params`` and ``train`` default to ``device="cuda"``
 and raise when there is no card; pass ``device="cpu"`` to run on the
-CPU.  This slice executes the triple and the star; the tree step (and
-so ``train`` on a tree fleet), ``simulate``, ``baseline``, ``explain``
-and ``plan_many`` come later (see ROADMAP.md).
+CPU.  They run on the triple, the star and the tree; ``simulate``,
+``baseline``, ``explain``, ``plan_many`` and the CLI are numpy and give
+the JAX package's numbers and strings ``==``.  Only ``step_fn``'s
+``cloud_mesh`` option (the cloud tail data-parallel across devices) is
+still to port (see ROADMAP.md).
+
+CLI smoke: ``python -m repro_torch.api --explain lenet5 [--m 2]
+[--batch 64] [--topology tree --edges 2] [--wire int8]``.
 """
 from __future__ import annotations
 
@@ -30,19 +35,20 @@ import torch
 
 from repro_torch.core import pipeline as _pipeline
 from repro_torch.core import scheduler as _scheduler
-from repro_torch.core.cost_model import Breakdown, MultiSchedule, Schedule
+from repro_torch.core import simulator as _simulator
+from repro_torch.core.cost_model import (Breakdown, MultiSchedule, Schedule,
+                                         _t_total_multi)
 from repro_torch.core.fleet import STAR, TREE, TRIPLE, Fleet
 from repro_torch.core.hybrid_step import (hybrid_step_from_schedule,
-                                          multi_hybrid_step_from_schedule)
+                                          multi_hybrid_step_from_schedule,
+                                          tree_schedule_step,
+                                          tree_stream_edges)
 from repro_torch.core.layerstack import LayerStack, as_layerstack
 from repro_torch.core.wire import apply_wire, validate_wire
 
-__all__ = ["Fleet", "Plan", "plan", "as_layerstack"]
+__all__ = ["Fleet", "Plan", "plan", "plan_many", "as_layerstack"]
 
-def _later(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md, "
-        f"'Modules to port': {item})")
+OBJECTIVES = _scheduler.OBJECTIVES
 
 
 def _resolve_device(device: Optional[Union[str, torch.device]]
@@ -113,6 +119,45 @@ class Plan:
         return _pipeline.t_pipeline(self.profile, self.network,
                                     self.schedule, K)
 
+    # ---- validation -----------------------------------------------------
+
+    def simulate(self, K: int = 1) -> float:
+        """Discrete-event-simulated makespan of ``K`` pipelined
+        iterations (``K = 1``: one barrier iteration).  Runs the
+        topology-native DES, so triple fleets reproduce the paper's
+        three-worker simulation exactly."""
+        if K == 1:
+            if self.fleet.topology == TRIPLE:
+                return _simulator._simulate_iteration(
+                    self.profile, self.network, self.schedule)
+            return _simulator._simulate_iteration_multi(
+                self.profile, self.network, self.schedule)
+        return _simulator.simulate_pipeline(self.profile, self.network,
+                                            self.schedule, K)
+
+    def baseline(self, tier: str) -> float:
+        """Exact ``T_total`` of the all-on-one-worker baseline schedule
+        (``tier`` in ``"device" | "edge" | "cloud"``) on this fleet's
+        cost model — the paper's All-Edge/All-Cloud comparison points."""
+        if tier not in ("device", "edge", "cloud"):
+            raise ValueError(f"unknown baseline tier: {tier!r} "
+                             f"(pick 'device', 'edge' or 'cloud')")
+        if self.fleet.topology == TRIPLE:
+            from repro_torch.core.baselines import all_on_one
+            return all_on_one(self.profile, self.network, self.B,
+                              tier).t_total
+        prof = self.profile
+        names = prof.worker_names
+        S = prof.num_streams
+        wo = tier if tier in ("edge", "cloud") else names[0]
+        if wo == "edge" and wo not in names:    # tree: edge_0.. at E >= 2
+            wo = names[prof.num_devices]
+        rest = [w for w in names if w != wo]
+        sched = MultiSchedule(worker_o=wo, worker_l=rest[-1],
+                              s_workers=tuple(rest[:-1]), m_s=(0,) * S,
+                              m_l=0, b_o=self.B, b_s=(0,) * S, b_l=0)
+        return _t_total_multi(prof, self.network, sched).total
+
     # ---- execution ------------------------------------------------------
 
     def _require_model(self) -> LayerStack:
@@ -122,22 +167,39 @@ class Plan:
                 "fleet); pass a model/LayerStack to plan() to execute")
         return self.model
 
-    def step_fn(self, lr: float = 0.05,
+    def stream_edges(self) -> tuple:
+        """Per-TASK-S-stream hosting edge (tree fleets): a device stream
+        sits under its radio's edge, an edge's own stream under itself,
+        and a cloud-hosted stream merges with the front group (index 0 —
+        on an E=1 tree every stream maps to edge 0, which is what keeps
+        the step identical to the star's)."""
+        return tree_stream_edges(self.profile, self.network,
+                                 self.multi_schedule)
+
+    def step_fn(self, lr: float = 0.05, cloud_mesh=None,
                 device: Optional[Union[str, torch.device]] = None
                 ) -> Callable:
         """A ``(params, x, y) -> (new_params, loss)`` hybrid-SGD step for
         the chosen schedule (exact batch-B SGD semantics).  ``x``/``y``
         may be numpy arrays or tensors; they are moved to ``device``
-        (default ``cuda``), where ``params`` must already live."""
+        (default ``cuda``), where ``params`` must already live.
+
+        ``cloud_mesh`` is a tree-topology option (the cloud tail
+        data-parallel across devices); it is not ported yet and raises
+        ``NotImplementedError``."""
         stack = self._require_model()
+        if cloud_mesh is not None and self.fleet.topology != TREE:
+            raise ValueError("cloud_mesh is a tree-topology option; this "
+                             f"plan's fleet is {self.fleet.topology!r}")
         dev = _resolve_device(device)
         sched = self.schedule
         wire = self.wire
         if self.fleet.topology == TREE:
-            raise _later("the tree hybrid step", "the tree step + "
-                         "_sharded_tail_grads")
-        run = hybrid_step_from_schedule if self.fleet.topology == TRIPLE \
-            else multi_hybrid_step_from_schedule
+            run = tree_schedule_step(self.profile, self.network, cloud_mesh)
+        elif self.fleet.topology == TRIPLE:
+            run = hybrid_step_from_schedule
+        else:
+            run = multi_hybrid_step_from_schedule
 
         def step(params, x, y):
             return run(stack, params, torch.as_tensor(x, device=dev),
@@ -154,17 +216,6 @@ class Plan:
         dev = _resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         return stack.init(gen, dev)
-
-    # ---- not ported yet -------------------------------------------------
-
-    def simulate(self, K: int = 1) -> float:
-        raise _later("Plan.simulate", "simulator/baselines copies")
-
-    def baseline(self, tier: str) -> float:
-        raise _later("Plan.baseline", "simulator/baselines copies")
-
-    def explain(self) -> str:
-        raise _later("Plan.explain", "simulator/baselines copies")
 
     def train(self, data, steps: int, lr: float = 0.05,
               resched_every: int = 20, ema: float = 0.3, seed: int = 0,
@@ -199,9 +250,6 @@ class Plan:
                 "churn (elastic membership) is only implemented for the "
                 f"star topology; this plan's fleet is "
                 f"topology={self.fleet.topology!r}")
-        if self.fleet.topology == TREE:
-            raise _later("Plan.train on a tree fleet", "the tree step + "
-                         "_sharded_tail_grads")
         stack = self._require_model()
         dev = _resolve_device(device)
         cfg = HierLoopConfig(
@@ -215,10 +263,57 @@ class Plan:
                          topology=self.fleet.topology, device=dev,
                          initial_schedule=self.schedule, churn=churn)
 
+    # ---- reporting ------------------------------------------------------
+
+    def explain(self) -> str:
+        """Human-readable cut/split/cost breakdown of the decision."""
+        bd = self.breakdown
+        s = self.schedule
+        res = self.result
+        name = self.model.name if self.model is not None else "(profile)"
+        ms = s.m_s if isinstance(s.m_s, int) else \
+            "/".join(str(m) for m in s.m_s)
+        t_edge, t_cloud = self.baseline("edge"), self.baseline("cloud")
+        lines = [
+            f"HierTrain plan — model={name}  fleet[{self.fleet.describe()}]",
+            f"  batch B={self.B}  objective={self.objective}  "
+            f"backend={self.backend}  wire={self.wire}",
+            f"  schedule: {s.describe()}",
+            f"  cuts: m_s={ms}  m_l={s.m_l}  of N={self.profile.num_layers}"
+            f" layers",
+            f"  predicted: T_total={bd.total:.6g}s  "
+            f"T_period={self.t_period:.6g}s",
+            f"  phases (s): f1={bd.t_f1:.4g} b1={bd.t_b1:.4g} "
+            f"f2={bd.t_f2:.4g} b2={bd.t_b2:.4g} f3={bd.t_f3:.4g} "
+            f"b3={bd.t_b3:.4g} update={bd.t_update:.4g}",
+            f"  comm (s): input={bd.comm_input:.4g} "
+            f"activation={bd.comm_activation:.4g} "
+            f"weight-sync={bd.comm_weightgrad:.4g}",
+            f"  baselines: all-edge={t_edge:.6g}s "
+            f"({t_edge / bd.total:.2f}x)  all-cloud={t_cloud:.6g}s "
+            f"({t_cloud / bd.total:.2f}x)",
+        ]
+        if self.pipeline_depth > 1:
+            K = self.pipeline_depth
+            tk = self.pipeline_time(K)
+            lines.append(
+                f"  pipelined: T(K={K})={tk:.6g}s vs barrier "
+                f"{K * bd.total:.6g}s ({K * bd.total / tk:.2f}x)")
+        search = (f"  search: {res.n_candidates} candidates, "
+                  f"{res.n_pruned} pruned, {res.n_lp_solved} LPs")
+        if getattr(res, "n_lp_refine", 0):
+            search += (f" (+{res.n_lp_refine} refine LPs, "
+                       f"{res.refine_rounds} rounds)")
+        lines.append(search)
+        return "\n".join(lines)
+
 
 def _prepare(model, fleet: Fleet, wire: Optional[str]):
     """Resolve the wire codec, adapt the model to a :class:`LayerStack`,
-    build the wire-adjusted profile and the native network."""
+    build the wire-adjusted profile and the native network.  Used by
+    :func:`plan` and by the cross-fleet planner
+    (``repro_torch.serve.planner``), so both see identical solver
+    inputs."""
     wire = fleet.wire if wire is None else validate_wire(wire)
     stack = as_layerstack(model) if model is not None else None
     profile = apply_wire(fleet.profile_for(stack), stack, wire)
@@ -227,7 +322,12 @@ def _prepare(model, fleet: Fleet, wire: Optional[str]):
 
 
 def plan_many(requests, **kwargs):
-    raise _later("plan_many", "serve")
+    """Batch front door: plan many fleets in shared tableau stacks with a
+    fingerprinted plan cache (``repro_torch.serve.planner``, DESIGN.md
+    §13).  Takes :class:`repro_torch.serve.planner.PlanRequest` items;
+    returns plans in request order."""
+    from repro_torch.serve import planner as _planner
+    return _planner.plan_many(requests, **kwargs)
 
 
 def plan(model, fleet: Fleet, B: int, *, objective: str = "latency",
@@ -263,3 +363,76 @@ def plan(model, fleet: Fleet, B: int, *, objective: str = "latency",
                 pipeline_depth=pipeline_depth, backend=backend,
                 profile=profile, network=net, result=result, wire=wire,
                 model=stack)
+
+
+# ---------------------------------------------------------------------------
+# CLI: python -m repro_torch.api --explain <config>
+# ---------------------------------------------------------------------------
+
+_CLI_CONFIGS = ("lenet5", "alexnet", "lm")
+
+
+def _cli_model_and_fleet(config: str, m: int, edge_cloud_mbps, topology,
+                         n_edges: int = 1):
+    if config in ("lenet5", "alexnet"):
+        from repro_torch.models import cnn
+        model = getattr(cnn, config)()
+        return model, Fleet.from_table2(
+            model=config, m=m,
+            edge_cloud_mbps=3.0 if edge_cloud_mbps is None
+            else edge_cloud_mbps,
+            topology=topology, n_edges=n_edges)
+    if config == "lm":
+        if topology == TRIPLE:
+            raise SystemExit("the lm fleet is star-native; drop "
+                             "--topology triple")
+        from repro_torch.core.fleet import LM_BACKHAUL_MBPS
+        from repro_torch.models.lm.layerstack import lm_layerstack
+        from repro_torch.models.lm.model import LMConfig
+        cfg = LMConfig(name="api-lm", family="dense", n_layers=6,
+                       d_model=256, n_heads=4, n_kv_heads=2, d_ff=768,
+                       vocab=32_000)
+        fleet = Fleet.lm_default(
+            m=m, backhaul_mbps=LM_BACKHAUL_MBPS if edge_cloud_mbps is None
+            else edge_cloud_mbps)
+        return lm_layerstack(cfg, seq_len=256), fleet
+    raise SystemExit(f"unknown config {config!r}; pick one of "
+                     f"{_CLI_CONFIGS}")
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.api",
+        description="Plan a HierTrain schedule and explain it.")
+    ap.add_argument("--explain", metavar="CONFIG", required=True,
+                    help=f"one of {', '.join(_CLI_CONFIGS)}")
+    ap.add_argument("--m", type=int, default=1,
+                    help="number of devices in the fleet")
+    ap.add_argument("--batch", type=int, default=64)
+    ap.add_argument("--edge-cloud-mbps", type=float, default=None,
+                    help="edge-cloud backhaul (default: 3 Mbps for the "
+                         "CNN testbeds, 200 Mbps for the lm fleet)")
+    ap.add_argument("--objective", choices=OBJECTIVES, default="latency")
+    ap.add_argument("--pipeline-depth", type=int, default=1)
+    ap.add_argument("--topology", choices=("auto", TRIPLE, STAR, TREE),
+                    default="auto")
+    ap.add_argument("--edges", type=int, default=1,
+                    help="edge-server count (tree topology; devices are "
+                         "partitioned contiguously)")
+    ap.add_argument("--wire", choices=("none", "int8"), default="none",
+                    help="cut-point transfer codec: int8 plans with and "
+                         "executes compressed activation/gradient wires")
+    args = ap.parse_args(argv)
+    model, fleet = _cli_model_and_fleet(args.explain, args.m,
+                                        args.edge_cloud_mbps, args.topology,
+                                        n_edges=args.edges)
+    p = plan(model, fleet, args.batch, objective=args.objective,
+             pipeline_depth=args.pipeline_depth, wire=args.wire)
+    print(p.explain())
+    print(f"  simulated (DES): {p.simulate():.6g}s")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,18 +1,23 @@
 """Hybrid-parallelism execution engine (§IV-B) with exact SGD semantics.
 
-The port of :mod:`repro.core.hybrid_step` (the triple and the star; the
-tree step comes later).  It executes one HierTrain iteration the way the
-paper describes it — workers holding *separate copies* of their assigned
-layers, activations crossing at the cut points, and only frontend
-gradients being exchanged — and produces the *same* update as vanilla
-SGD over the full batch ``B``.  Two entry points:
+The port of :mod:`repro.core.hybrid_step` (the triple, the star and the
+tree).  It executes one HierTrain iteration the way the paper describes
+it — workers holding *separate copies* of their assigned layers,
+activations crossing at the cut points, and only frontend gradients
+being exchanged — and produces the *same* update as vanilla SGD over the
+full batch ``B``.  Three entry points:
 
 * :func:`hybrid_sgd_step` — the paper's three-worker topology (one TASK S,
   one TASK L, one TASK O).
 * :func:`multi_hybrid_sgd_step` — M TASK-S streams with per-stream cuts
   ``m_s[i]``; worker_o picks each arriving stream up at its own cut, in
-  ascending-cut order.  With ``M = 1`` it runs the same operations in the
-  same order as :func:`hybrid_sgd_step`, so the two agree bit for bit.
+  ascending-cut order (the tree step with every stream on an edge of its
+  own).  With ``M = 1`` it runs the same operations in the same order as
+  :func:`hybrid_sgd_step`, so the two agree bit for bit.
+* :func:`tree_hybrid_sgd_step` — the streams live under E edge servers,
+  and each edge concatenates its resident same-cut streams into one block
+  before worker_o's walk.  With every stream on one edge (E = 1) it runs
+  the star's arithmetic, so the two agree bit for bit.
 
 Each worker's copy is a distinct set of autograd leaves over the same
 storage (``p_o``, ``p_s = params[:m_s]``, ``p_l = params[:m_l]``), so
@@ -222,16 +227,69 @@ def multi_hybrid_sgd_step(model, params: Params, batches: Dict[str, object],
     """One M-stream HierTrain iteration.  Returns (updated params, mean
     loss).  Exact batch-``B`` SGD semantics: per-stream gradients are
     per-sample sums, aggregated over every copy of each frontend layer and
-    scaled once by ``1/B``.  With ``M = 1`` and the same schedule this
-    runs the operations of :func:`hybrid_sgd_step` in the same order
-    (including the ``wire`` codec, applied per arriving stream at its
-    cut), so the two agree bit for bit.
+    scaled once by ``1/B``.  Streams join worker_o's batch in
+    ascending-cut order (stream index breaks ties), each with its own
+    concatenation: the tree step with every stream on an edge of its own.
+    With ``M = 1`` and the same schedule this runs the operations of
+    :func:`hybrid_sgd_step` in the same order (including the ``wire``
+    codec, applied per arriving stream at its cut), so the two agree bit
+    for bit.
     """
+    return tree_hybrid_sgd_step(model, params, batches, m_s, m_l, lr,
+                                wire=wire, stream_edge=range(len(m_s)))
+
+
+def multi_hybrid_step_from_schedule(model, params: Params, x: torch.Tensor,
+                                    y: torch.Tensor, sched: MultiSchedule,
+                                    lr: float, wire: str = "none"
+                                    ) -> Tuple[Params, torch.Tensor]:
+    return multi_hybrid_sgd_step(model, params,
+                                 multi_split_batch(x, y, sched),
+                                 sched.m_s, sched.m_l, lr, wire=wire)
+
+
+# ---------------------------------------------------------------------------
+# Two-level tree generalization: streams live under E edge servers; each
+# edge pre-merges the activations of its resident same-cut streams before
+# the cloud-side walk.  Concatenation is arithmetic-free, so with every
+# stream on one edge (E = 1) the params and loss are bit-identical to the
+# star's (every stream on an edge of its own): the sample order, every
+# batch that meets a layer and the loss-sum reduction order coincide.
+# ---------------------------------------------------------------------------
+
+
+def _refuse_cloud_mesh(cloud_mesh) -> None:
+    if cloud_mesh is not None:
+        raise NotImplementedError(
+            "cloud_mesh is not ported to repro_torch yet (ROADMAP.md, "
+            "'Modules to port': item 7, the process-group cloud tail)")
+
+
+def tree_hybrid_sgd_step(model, params: Params, batches: Dict[str, object],
+                         m_s: Sequence[int], m_l: int, lr: float,
+                         wire: str = "none",
+                         stream_edge: Optional[Sequence[int]] = None,
+                         cloud_mesh=None) -> Tuple[Params, torch.Tensor]:
+    """One tree HierTrain iteration.  Returns (updated params, mean loss).
+
+    ``stream_edge[i]`` names the edge hosting TASK-S stream ``i`` (device
+    streams sit under their radio's edge; an edge's own stream under
+    itself).  Streams sharing ``(cut, edge)`` are concatenated *on the
+    edge* into one activation block before joining worker_o's
+    ascending-cut walk.  The ``wire`` codec runs on each stream before
+    its edge's merge, once per stream that carries samples.
+    ``cloud_mesh`` (the cloud tail data-parallel across devices) is not
+    ported yet and must be ``None``.
+    """
+    _refuse_cloud_mesh(cloud_mesh)
     stack = as_layerstack(model)
     N = stack.num_layers
     codec = wire_codec(wire)
     m_s = tuple(int(m) for m in m_s)
     M = len(m_s)
+    eo = tuple(int(e) for e in stream_edge) if stream_edge is not None \
+        else (0,) * M
+    assert len(eo) == M
     x_o, y_o = batches["o"]
     s_streams = batches["s"]
     x_l, y_l = batches["l"]
@@ -240,16 +298,24 @@ def multi_hybrid_sgd_step(model, params: Params, batches: Dict[str, object],
     b_s = [sx.shape[0] for sx, _ in s_streams]
     b_o, b_l = x_o.shape[0], x_l.shape[0]
     B = b_o + sum(b_s) + b_l
-    # Streams join worker_o's batch in ascending-cut order (stream index
-    # breaks ties) — the labels must concatenate in the same order.
+    # Ascending-cut order with the hosting edge (then stream index)
+    # breaking ties; maximal runs of equal (cut, edge) are one edge-side
+    # merge each.  With every stream on edge 0 this is the star's order.
     join_order = sorted((i for i in range(M) if b_s[i]),
-                        key=lambda i: (m_s[i], i))
+                        key=lambda i: (m_s[i], eo[i], i))
+    groups: List[Tuple[int, List[int]]] = []
+    for i in join_order:
+        if groups and groups[-1][0] == m_s[i] and \
+                eo[groups[-1][1][-1]] == eo[i]:
+            groups[-1][1].append(i)
+        else:
+            groups.append((m_s[i], [i]))
 
     p_o = _leaves(params, N)
     p_s = [_leaves(params, m) for m in m_s]
     p_l = _leaves(params, m_l)
 
-    # --- forward: every front-end up to its own cut ---
+    # --- forward: per-stream frontends, per-edge merges, worker_o's walk
     h: List[Optional[torch.Tensor]] = [
         stack.apply_segment(p_s[i], s_streams[i][0], 0, m_s[i])
         if b_s[i] else None for i in range(M)]
@@ -259,14 +325,15 @@ def multi_hybrid_sgd_step(model, params: Params, batches: Dict[str, object],
              for i in range(M)]
         if h_l is not None and m_l > 0:
             h_l = codec(h_l)
-    # worker_o walks its segment list, merging arrivals at their cuts.
     cur = x_o
     prev = 0
-    for i in join_order:
-        if m_s[i] != prev:
-            cur = stack.apply_segment(p_o, cur, prev, m_s[i])
-            prev = m_s[i]
-        cur = torch.cat([cur, h[i]], dim=0)
+    for cut, members in groups:
+        if cut != prev:
+            cur = stack.apply_segment(p_o, cur, prev, cut)
+            prev = cut
+        blk = h[members[0]] if len(members) == 1 else \
+            torch.cat([h[i] for i in members], dim=0)
+        cur = torch.cat([cur, blk], dim=0)
     cur = stack.apply_segment(p_o, cur, prev, m_l)
     if h_l is not None:
         cur = torch.cat([cur, h_l], dim=0)
@@ -278,7 +345,7 @@ def multi_hybrid_sgd_step(model, params: Params, batches: Dict[str, object],
     grads = _grads(total_loss, [p_o, *p_s, p_l])
     g_o, g_s, g_l = grads[0], grads[1:1 + M], grads[1 + M]
 
-    # --- weight-update phase: layer-wise gradient exchange ---------------
+    # --- weight-update phase: the star's order, g_o + g_s[d] + g_l ---
     new_params: Params = []
     with torch.no_grad():
         for i in range(N):
@@ -292,13 +359,54 @@ def multi_hybrid_sgd_step(model, params: Params, batches: Dict[str, object],
     return new_params, total_loss.detach() / B
 
 
-def multi_hybrid_step_from_schedule(model, params: Params, x: torch.Tensor,
-                                    y: torch.Tensor, sched: MultiSchedule,
-                                    lr: float, wire: str = "none"
-                                    ) -> Tuple[Params, torch.Tensor]:
-    return multi_hybrid_sgd_step(model, params,
-                                 multi_split_batch(x, y, sched),
-                                 sched.m_s, sched.m_l, lr, wire=wire)
+def tree_stream_edges(profile, net, sched: MultiSchedule) -> Tuple[int, ...]:
+    """Per-TASK-S-stream hosting edge for a tree schedule: a device
+    stream sits under its radio's edge, an edge's own stream under
+    itself, and a cloud-hosted stream merges with the front group
+    (index 0).  On an E=1 tree every stream maps to edge 0, which is
+    what keeps the step identical to the star's."""
+    D = profile.num_devices
+    E = net.num_edges
+    eo = net.edge_of
+    out = []
+    for w in sched.s_workers:
+        i = profile.widx[w]
+        if i < D:
+            out.append(eo[i])
+        else:
+            j = i - D
+            out.append(j if j < E else 0)
+    return tuple(out)
+
+
+def tree_hybrid_step_from_schedule(model, params: Params, x: torch.Tensor,
+                                   y: torch.Tensor, sched: MultiSchedule,
+                                   lr: float, wire: str = "none",
+                                   stream_edge: Optional[Sequence[int]]
+                                   = None, cloud_mesh=None
+                                   ) -> Tuple[Params, torch.Tensor]:
+    return tree_hybrid_sgd_step(model, params,
+                                multi_split_batch(x, y, sched),
+                                sched.m_s, sched.m_l, lr, wire=wire,
+                                stream_edge=stream_edge,
+                                cloud_mesh=cloud_mesh)
+
+
+def tree_schedule_step(profile, net, cloud_mesh=None) -> Callable:
+    """:func:`tree_hybrid_step_from_schedule` with the stream→edge map
+    re-derived from each schedule it is given (:func:`tree_stream_edges`
+    on ``profile`` and ``net``): the step ``Plan.step_fn`` and
+    ``Plan.train`` run on a tree.  Same signature as the other
+    ``*_step_from_schedule`` functions, less ``stream_edge``."""
+    _refuse_cloud_mesh(cloud_mesh)
+
+    def run(model, params: Params, x: torch.Tensor, y: torch.Tensor,
+            sched: MultiSchedule, lr: float, wire: str = "none"
+            ) -> Tuple[Params, torch.Tensor]:
+        return tree_hybrid_step_from_schedule(
+            model, params, x, y, sched, lr, wire=wire,
+            stream_edge=tree_stream_edges(profile, net, sched))
+    return run
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Fault-tolerant hierarchical training loop.
 
 The port of the hierarchical half of :mod:`repro.train.loop` (the engine
-behind :meth:`repro_torch.api.Plan.train`, on the triple and the star).
+behind :meth:`repro_torch.api.Plan.train`, on the triple, the star and
+the tree).
 Planning, the straggler EMA and the simulated wall clock are numpy and
 give the JAX package's schedules and walls ``==``; the numerics run the
 port's hybrid-SGD step in PyTorch on the plan's device.
@@ -38,10 +39,11 @@ from repro_torch.core.churn import (DeviceCrash, apply_event, reference_rows,
                                     remap_schedule)
 from repro_torch.core.cost_model import (WORKERS, HierProfile, MultiProfile,
                                          MultiSchedule, Schedule,
-                                         StarNetwork, _t_total,
+                                         StarNetwork, TreeProfile, _t_total,
                                          _t_total_multi)
 from repro_torch.core.hybrid_step import (hybrid_step_from_schedule,
-                                          multi_hybrid_step_from_schedule)
+                                          multi_hybrid_step_from_schedule,
+                                          tree_schedule_step)
 from repro_torch.core.pipeline import t_period, t_period_multi
 
 
@@ -101,18 +103,24 @@ def _profile_from_arrays(template, worker_names, arrays):
     """Rebuild a profile from checkpointed timing rows.  The per-layer
     columns (MP/MO/MG/sample_bytes) are hardware-membership invariant, so
     they come from the caller's template; the per-worker rows and (for a
-    star) the membership come from the checkpoint."""
+    star) the membership come from the checkpoint.  A tree template gives
+    a tree profile (its ``n_edges`` and ``cloud_speedup``), so a re-solve
+    after a restore plans a tree."""
     if worker_names is None:
         return HierProfile(
             layer_names=template.layer_names, L_f=arrays["L_f"],
             L_b=arrays["L_b"], L_u=arrays["L_u"], MP=template.MP,
             MO=template.MO, sample_bytes=template.sample_bytes,
             MG=template.MG)
-    return MultiProfile(
+    common = dict(
         layer_names=template.layer_names, worker_names=tuple(worker_names),
         L_f=arrays["L_f"], L_b=arrays["L_b"], L_u=arrays["L_u"],
         MP=template.MP, MO=template.MO,
         sample_bytes=template.sample_bytes, MG=template.MG)
+    if isinstance(template, TreeProfile):
+        return TreeProfile(n_edges=template.n_edges,
+                           cloud_speedup=template.cloud_speedup, **common)
+    return MultiProfile(**common)
 
 
 def _ema_profile_update(prof, baseline, slow: Dict[str, float],
@@ -137,7 +145,7 @@ def _ema_profile_update(prof, baseline, slow: Dict[str, float],
 def _loop_ops(topology: str, model, profile, net, cfg: HierLoopConfig):
     """Topology-native function bundle for :func:`_run_loop`.  History
     formats are per topology: the triple records scalar ``m_s`` and a
-    3-tuple ``b``, the star records the ``m_s`` tuple and an
+    3-tuple ``b``, the star and the tree record the ``m_s`` tuple and an
     (M+2)-tuple ``b``.  ``model`` is used only by ``step``."""
     if topology == "triple":
         return dict(
@@ -154,7 +162,13 @@ def _loop_ops(topology: str, model, profile, net, cfg: HierLoopConfig):
                             "b": (s.b_o, s.b_s, s.b_l)},
             tag="hier",
         )
-    assert topology == "star", topology
+    assert topology in ("star", "tree"), topology
+    # The tree step pre-merges each edge's same-cut streams; the
+    # stream→edge map depends on the live schedule, so it is re-derived
+    # from each step's schedule.  Straggler EMAs are already per-edge: every edge server
+    # is its own row of ``worker_names``.
+    run = tree_schedule_step(profile, net) if topology == "tree" \
+        else multi_hybrid_step_from_schedule
     return dict(
         names=profile.worker_names,
         widx=profile.widx,
@@ -162,11 +176,11 @@ def _loop_ops(topology: str, model, profile, net, cfg: HierLoopConfig):
             p, net, cfg.batch, objective=cfg.objective, warm_start=warm),
         fill=lambda p, s: _t_total_multi(p, net, s).total,
         period=lambda p, s: t_period_multi(p, net, s),
-        step=lambda params, x, y, s: multi_hybrid_step_from_schedule(
-            model, params, x, y, s, cfg.lr, wire=cfg.wire),
+        step=lambda params, x, y, s: run(model, params, x, y, s, cfg.lr,
+                                         wire=cfg.wire),
         hist=lambda s: {"m_s": s.m_s, "m_l": s.m_l,
                         "b": (s.b_o, *s.b_s, s.b_l)},
-        tag="multi-hier",
+        tag="tree-hier" if topology == "tree" else "multi-hier",
     )
 
 
@@ -309,8 +323,10 @@ class _Planner:
         self.wall = float(extra["wall"])
         self.sched = _sched_from_json(extra["sched"])
         # Star membership may have churned, so names come from the
-        # checkpoint; the triple rebuilds from the caller's template.
-        names = tuple(extra["worker_names"]) if self.is_star else None
+        # checkpoint; tree and triple fleets have fixed membership and
+        # rebuild from the caller's template.
+        names = tuple(extra["worker_names"]) if self.is_star else (
+            self.template.worker_names if self.topology == "tree" else None)
         self.prof = _profile_from_arrays(self.template, names, tree["prof"])
         if self.is_star:
             self.base_prof = _profile_from_arrays(self.template, names,
@@ -350,7 +366,7 @@ def _run_loop(cfg: HierLoopConfig, model, profile, net, data,
               churn=None) -> Dict[str, Any]:
     """Train a layer stack under the HierTrain schedule, re-solving the
     schedule online as (simulated) worker speeds drift — the engine
-    behind :meth:`repro_torch.api.Plan.train` on the triple and the star.
+    behind :meth:`repro_torch.api.Plan.train` on every topology.
 
     ``model`` is a :class:`~repro_torch.core.layerstack.LayerStack`;
     ``data.batch(step)`` must return ``{"x", "labels"}`` arrays (numpy or

@@ -7,10 +7,13 @@
   with the int8 wire matches JAX's ``Plan.step_fn``: each step within the
   int8 tolerance of tests/test_torch_hybrid_step.py, the run within the
   int8 loss budget;
+* on the fig_tree-style AlexNet tree (M=4, E=2, int8) the plan is ``==``
+  and the tree step on it matches JAX's at the int8 tolerance;
 * ``step_fn`` / ``init_params`` run on the card unless told otherwise,
-  and raise when there is none;
-* the entry points still to port raise, naming the ROADMAP item
-  (``Plan.train`` on a tree fleet among them).
+  and raise when there is none.  The rest of the facade (``simulate``,
+  ``baseline``, ``explain``, the CLI, ``plan_many``) is held ``==`` by
+  tests/test_torch_facade.py, the tree step and tree training by
+  tests/test_torch_tree.py.
 """
 from __future__ import annotations
 
@@ -63,14 +66,31 @@ def test_plan_equals_jax(name, m, wire, backend):
 
 @pytest.mark.parametrize("objective", ["latency", "throughput"])
 def test_tree_plan_equals_jax_and_step_waits(objective):
+    """The tree plan is ``==``; its step (on the narrowed AlexNet, at the
+    plan's schedule and stream→edge map) matches JAX's step at the int8
+    tolerance of tests/test_torch_hybrid_step.py."""
     jp = japi.plan(jcnn.alexnet(), _fleets(japi, "alexnet", 4, "int8",
                                            "tree"), 64, objective=objective)
     tp = tapi.plan(tcnn.alexnet(), _fleets(tapi, "alexnet", 4, "int8",
                                            "tree"), 64, objective=objective)
     assert repr(tp.schedule) == repr(jp.schedule)
     assert (tp.t_total, tp.t_period) == (jp.t_total, jp.t_period)
-    with pytest.raises(NotImplementedError, match="tree"):
-        tp.step_fn(device="cpu")
+    assert tp.stream_edges() == jp.stream_edges()
+    from repro.core import hybrid_step as jhs
+    from repro_torch.core import hybrid_step as ths
+    jm, tm = model_pair("alexnet_narrow")
+    p_np = jax_params(jm, 17)
+    x, y = batch(jm, 64, 18)
+    edges = tp.stream_edges()
+    jparams, jl = jax.jit(lambda p, a, b: jhs.tree_hybrid_step_from_schedule(
+        jm, p, a, b, jp.schedule, 0.05, wire="int8", stream_edge=edges))(
+        to_jax(p_np), x, y)
+    tparams, tl = ths.tree_hybrid_step_from_schedule(
+        tm, params_from_numpy(p_np), torch.from_numpy(x),
+        torch.from_numpy(y), tp.schedule, 0.05, wire="int8",
+        stream_edge=edges)
+    assert abs(float(tl) - float(jl)) <= INT8_LOSS
+    assert_params_close(tparams, jparams, **INT8_TOL)
 
 
 @pytest.mark.parametrize("m,B", [(1, 16), (4, 32)])
@@ -125,24 +145,6 @@ def test_step_fn_and_init_params_need_a_card_by_default(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         p.init_params(seed=0)
     assert callable(p.step_fn(device="cpu"))
-
-
-@pytest.mark.parametrize("call", ["simulate", "baseline", "explain", "train",
-                                  "plan_many"])
-def test_unported_entry_points_say_so(call):
-    """Each entry point still to port raises, naming the ROADMAP item;
-    ``train`` is ported on the triple and the star and says so on a tree
-    fleet, whose step comes later."""
-    p = tapi.plan(tcnn.lenet5(), tapi.Fleet.from_table2("lenet5"), 16)
-    tree = tapi.plan(tcnn.lenet5(), tapi.Fleet.from_table2(
-        "lenet5", m=2, n_edges=2), 16)
-    fn = {"simulate": lambda: p.simulate(),
-          "baseline": lambda: p.baseline("edge"),
-          "explain": lambda: p.explain(),
-          "train": lambda: tree.train(None, steps=1, device="cpu"),
-          "plan_many": lambda: tapi.plan_many([])}[call]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fn()
 
 
 def test_profile_only_plan_cannot_execute():

@@ -54,6 +54,8 @@ def test_port_has_files_to_scan():
     assert "src/repro_torch/checkpoint/store.py" in names
     assert "src/repro_torch/data/pipeline.py" in names
     assert "src/repro_torch/core/churn.py" in names
+    assert "src/repro_torch/core/simulator.py" in names
+    assert "src/repro_torch/serve/planner.py" in names
     assert (ROOT / "chip_smoke.py").exists()
 
 
@@ -75,7 +77,9 @@ def test_importing_the_port_loads_no_jax_or_repro():
         "import repro_torch.models.lm.fleet_configs\n"
         "import repro_torch.train.loop, repro_torch.checkpoint.store\n"
         "import repro_torch.data.pipeline, repro_torch.core.churn\n"
-        "import repro_torch.core.profiler\n"
+        "import repro_torch.core.profiler, repro_torch.core.simulator\n"
+        "import repro_torch.core.baselines, repro_torch.serve.planner\n"
+        "import repro_torch.serve.population\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
         "'repro', 'ml_dtypes') or m.startswith(('jax.', 'jaxlib.', "
         "'repro.', 'ml_dtypes.')))\n"

@@ -138,9 +138,13 @@ def segments(row: int, N: int, elem_bytes: int, s: int, slice_elems: int,
 
 MAIN_SHAPES = [(m, 50176, 4) for m in (39, 33, 6, 5, 4)] + \
     [(m, 262144, 2) for m in (35, 38)]
+# The other AlexNet rows of chip_smoke.py's paths, its loops' straggler
+# windows and the fig_tree plans (tests/test_torch_facade.py pins them).
+MORE_ALEXNET_SHAPES = [(m, 50176, 4)
+                       for m in (38, 35, 34, 31, 14, 13, 12, 11, 8, 3, 2)]
 
 
-@pytest.mark.parametrize("M,N,eb", MAIN_SHAPES + [
+@pytest.mark.parametrize("M,N,eb", MAIN_SHAPES + MORE_ALEXNET_SHAPES + [
     (1, 50176, 4), (1, 262144, 2), (1, 1, 4), (1, 1, 2), (7, 12345, 4),
     (5, 12343, 2), (3, 1000, 4), (64, 4096, 2), (2, 3, 2), (130, 17, 4)])
 def test_plan_slices_tiles_each_row_on_16_byte_edges(M, N, eb):
@@ -325,12 +329,14 @@ def test_quotient_identity_is_the_ieee_division():
 
 def test_chip_smoke_quantizer_cases_reach_the_kernel_edges():
     cases = chip_smoke.quant_cases(torch, "cpu", torch.Generator()
-                                   .manual_seed(0))
+                                   .manual_seed(0),
+                                   [m for m, _, _ in MAIN_SHAPES[:5] +
+                                    MORE_ALEXNET_SHAPES])
     names = [c[0] for c in cases]
     assert len(set(names)) == len(names)
     wire = {(x.shape[0], x.shape[1], x.dtype) for _, x, u in cases
             if not isinstance(u, torch.Tensor)}
-    for m, n, eb in MAIN_SHAPES:
+    for m, n, eb in MAIN_SHAPES + MORE_ALEXNET_SHAPES:
         assert (m, n, torch.float32 if eb == 4 else torch.bfloat16) in wire
     xs = [x for _, x, _ in cases]
     assert any(torch.isnan(x).any() for x in xs)
