@@ -19,8 +19,9 @@ Phases (every one that fails exits non-zero; there is no CPU path):
    composition it replaced) bitwise, NaN, +-inf, ragged and misaligned
    rows included; flash attention and the GLA scan within the ``TOL``
    rule of tests/test_kernel_oracle.py (``atol + ulps * ulp`` in the
-   storage dtype).  Times from CUDA events over CUDA-graph replays
-   (device time, L2 warm); the library time is one PyTorch call
+   storage dtype), at phase 9's prefill shapes too.  Times from CUDA
+   events over CUDA-graph replays (device time, L2 warm); the library
+   time is one PyTorch call
    computing the same function, where there is one
    (``scaled_dot_product_attention`` for attention without a window).
 4. AlexNet 224x224 at full width, B=64, int8 wire: ``Fleet.from_table2``
@@ -57,13 +58,24 @@ Phases (every one that fails exits non-zero; there is no CPU path):
    the tree step and the star step, from the same params and batch under
    ``cudnn.deterministic``, must be bitwise equal.  Then phase 5's
    ``Plan.train`` checks on the E=2 tree, with its own straggler.
-9. One JSON line of kernels; last, the ``{"ok": true, ...}`` line.
+9. Serving zamba2-7b and qwen2.5-3b at their published configs, full
+   depth, bf16, ``use_flash`` and ``use_gla_kernel``: ``build_model`` ->
+   ``init`` on the card -> ``generate`` (B=4 prompts of 2,048 tokens, 32
+   greedy new tokens), twice, bitwise equal; (a) the kernel prefill's
+   last logits against the same prefill on the plain paths, (b) eight
+   teacher-forced decode steps against the kernel forward over 2,056
+   tokens, both within ``SERVE_TOL`` of the largest |logit|; every logit
+   finite; prefill ms, decode ms per token, tokens/s, peak memory and the
+   device busy share of one profiled decode step.
+10. One JSON line of kernels; last, the ``{"ok": true, ...}`` line.
 
-Each main path (4, 5 and 6 per plan, 7, 8 per plan) zeroes every launch
-counter just before its steps and reads them just after, and fails
-unless each kernel of the path launched exactly as often as the
-schedule's executed segments imply; an AlexNet path that sends the
-quantizer a row count phase 3 did not hold fails too.
+Each main path (4, 5 and 6 per plan, 7, 8 per plan, 9 per generate call)
+zeroes every launch counter just before its steps and reads them just
+after, and fails unless each kernel of the path launched exactly as
+often as the schedule's executed segments (or the model's layers: one
+flash per attention block and one GLA per Mamba2 layer per prefill, none
+per decode step) imply; an AlexNet path that sends the quantizer a row
+count phase 3 did not hold fails too.
 """
 from __future__ import annotations
 
@@ -95,6 +107,21 @@ WIRE_SHAPE_N = 28 * 28 * 64       # AlexNet cut 1: conv1 + pool output
 # on a fixed batch in bf16 (see PERF.md).
 LM_T, LM_B, LM_LR, LM_STEPS = 512, 64, 5e-4, 4
 Z7_B, Z7_LR, Z7_STEPS = 8, 5e-4, 3
+
+# Serving (phase 9): the published configs at full depth, B prompts of
+# SERVE_T tokens, SERVE_NEW greedy new tokens through ``generate``, and
+# SERVE_TF teacher-forced decode steps held against the forward.
+SERVE_ARCHS = ("zamba2-7b", "qwen2.5-3b")
+SERVE_B, SERVE_T, SERVE_NEW, SERVE_TF = 4, 2048, 32, 8
+# (a) kernel prefill vs plain prefill and (b) decode steps vs the kernel
+# forward, as max |difference| over the largest |logit|: twice (margin 2)
+# what tests/test_torch_serve_kernels.py measures on the CPU in bf16 at
+# these archs' full depth, head and state widths (d_model cut to 512 /
+# 448, B=2, T=512), the kernels' rounding emulated: zamba2-7b 0.1261 and
+# 0.0977, qwen2.5-3b 0.0196 and 0.0194.  Random bf16 weights through 81
+# Mamba2 layers amplify a last-bit difference; the kernels themselves
+# are held to the TOL rule in phase 3.
+SERVE_TOL = {"zamba2-7b": (0.26, 0.2), "qwen2.5-3b": (0.04, 0.04)}
 
 # Pinned kernel tolerances of tests/test_kernel_oracle.py:40-49:
 # |got - want| <= atol + ulps * ulp_dtype(|want|).
@@ -420,6 +447,12 @@ FLASH_CASES = (
     ("bf16_noncausal_w64_16_200_112", 16, 16, 200, 200, 112, "bf16", False,
      64),
     ("bf16_cross_16_128x384_128", 16, 8, 128, 384, 128, "bf16", False, 0),
+    # phase 9's prefills: zamba2-7b (B=4 x 32 heads of 112) and
+    # qwen2.5-3b (B=4 x 16 query heads over 2 KV heads of 128, GQA rep 8)
+    ("zamba2_7b_prefill_4x32_2048_112", 4 * 32, 4 * 32, 2048, 2048, 112,
+     "bf16", True, 0),
+    ("qwen2_5_3b_prefill_4x16_2048_128_gqa8", 4 * 16, 4 * 2, 2048, 2048,
+     128, "bf16", True, 0),
 )
 
 
@@ -493,6 +526,9 @@ GLA_CASES = (
     ("bf16_normalize_64_512_64_W256", 64, 512, 64, 64, 256, "bf16", True),
     ("bf16_dk128_dv64_32_256_W64", 32, 256, 128, 64, 64, "bf16", False),
     ("bf16_cuda_cores_8_96_16x40_W32", 8, 96, 16, 40, 32, "bf16", True),
+    # phase 9's zamba2-7b prefill: B=4 x 112 SSM heads, d_state 64
+    ("zamba2_7b_prefill_4x112_2048_64_W256", 4 * 112, 2048, 64, 64, 256,
+     "bf16", False),
 )
 
 
@@ -1003,7 +1039,7 @@ def alexnet_wire_rows(api, loop, cnn) -> tuple:
     the quantizer, derived from the plans they drive and, on the
     ``Plan.train`` paths, from every schedule of the loop's numpy replay
     (the straggler moves the schedule).  Phase 3 holds each of them
-    bitwise; phase 9 fails on any other."""
+    bitwise; the end of ``main`` fails on any other."""
     paths = [(api.Fleet.from_table2("alexnet", m=m, wire="int8"), m)
              for m in (1, 4)]
     paths += [(tree_fleet(api, e), f"tree E={e}") for e in TREE_EDGES]
@@ -1158,6 +1194,7 @@ def profile_call(torch, fn, label: str) -> dict:
             rows.append((dev_us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
+    n_kernels = sum(r[1] for r in rows)
     top = [{"ms": ms, "count": n, "name": name[:100]}
            for ms, n, name in rows[:10]]
     ours = {k: sum(ms for ms, _, name in rows if tag in name)
@@ -1167,11 +1204,11 @@ def profile_call(torch, fn, label: str) -> dict:
     share = "not measured" if busy == 0 else \
         f"{busy:.2f} ms, {busy / wall:.3f} of the profiled wall"
     print(f"  {label} profiled: wall {wall:.2f} ms, device busy "
-          f"{share}; our kernels {ours}")
+          f"{share}, {n_kernels} kernels; our kernels {ours}")
     for r in top:
         print(f"    {r['ms']:9.3f} ms  x{r['count']:<5d} {r['name']}")
-    return {"wall_ms": wall, "device_busy_ms": busy, "ours_ms": ours,
-            "top": top}
+    return {"wall_ms": wall, "device_busy_ms": busy, "kernels": n_kernels,
+            "ours_ms": ours, "top": top}
 
 
 def to_float(torch, params):
@@ -1253,6 +1290,171 @@ def run_zamba2_7b(torch, api, kernels, stack) -> dict:
     return run
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: serving.
+# ---------------------------------------------------------------------------
+
+
+def serve_launches(cfg) -> dict:
+    """Kernel launches of one prefill: flash once per attention block
+    applied (every layer of a dense model; each of zamba's
+    ``n_layers // shared_attn_every`` shared-block applications), the
+    GLA scan once per Mamba2 layer.  A decode step launches neither."""
+    if cfg.family == "zamba":
+        return {"int8_quant": 0,
+                "flash_attention": cfg.n_layers // cfg.shared_attn_every,
+                "gla_scan": cfg.n_layers}
+    return {"int8_quant": 0, "flash_attention": cfg.n_layers, "gla_scan": 0}
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want|."""
+    g, w = got.float(), want.float()
+    return float((g - w).abs().max() / w.abs().max())
+
+
+def run_serve(torch, kernels, configs, lm_model, engine, arch) -> dict:
+    """One published config through ``build_model`` -> ``init`` on the
+    card -> ``generate`` (twice, greedy; counters zeroed just before each
+    and read just after), then the prefill alone, the same prefill on the
+    plain paths (a), ``SERVE_TF`` teacher-forced decode steps against the
+    kernel forward over ``SERVE_T + SERVE_TF`` tokens (b), and one
+    profiled decode step."""
+    cfg = configs.get_arch(arch).lm.variant(use_flash=True,
+                                            use_gla_kernel=True)
+    model = lm_model.build_model(cfg)
+    plain = lm_model.build_model(cfg.variant(use_flash=False,
+                                             use_gla_kernel=False))
+    tol_a, tol_b = SERVE_TOL[arch]
+    max_len = SERVE_T + SERVE_NEW
+    label = f"{arch} serve"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = lm_model.param_count(params)
+    param_bytes = torch.cuda.memory_allocated()
+    g = torch.Generator(device="cuda").manual_seed(BATCH_SEED)
+    toks = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_T + SERVE_TF),
+                         generator=g, device="cuda")
+    batch = {"tokens": toks[:, :SERVE_T]}
+    per_prefill = serve_launches(cfg)
+    print(f"  {label}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params} parameters ({param_bytes / 2 ** 30:.3f} GiB "
+          f"allocated), init {init_s:.2f} s; B={SERVE_B}, prompt "
+          f"{SERVE_T}, {SERVE_NEW} new tokens, max_len {max_len}")
+    with torch.inference_mode():
+        torch.cuda.reset_peak_memory_stats()
+        gens = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            zero_counters(kernels)
+            t0 = time.perf_counter()
+            out = engine.generate(model, params, batch, max_len=max_len,
+                                  n_new=SERVE_NEW)
+            torch.cuda.synchronize()
+            gens.append({"out": out, "ms": (time.perf_counter() - t0) * 1e3,
+                         "launches": read_counters(kernels)})
+        peak = torch.cuda.max_memory_allocated()
+
+        torch.cuda.synchronize()
+        zero_counters(kernels)
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, batch, max_len)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        prefill_launches = read_counters(kernels)
+        plain_logits, plain_cache = plain.prefill(params, batch, max_len)
+        del plain_cache
+        err_a = rel_err(logits, plain_logits)
+
+        step_ms, step_launches, step_logits = [], [], []
+        for i in range(SERVE_TF):
+            tok = toks[:, SERVE_T + i:SERVE_T + i + 1]
+            torch.cuda.synchronize()
+            zero_counters(kernels)
+            t0 = time.perf_counter()
+            step, cache = model.decode_step(params, tok, cache, SERVE_T + i)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            step_launches.append(read_counters(kernels))
+            step_logits.append(step)
+        hidden = model.hidden_fn(params, {"tokens": toks})
+        h = lm_model._apply_norm(cfg, params["final_norm"],
+                                 hidden[:, SERVE_T - 1:])
+        del hidden
+        full = (h @ params["lm_head"]).float()        # [B, 1 + TF, V]
+        errs_b = [rel_err(logits, full[:, 0])] + \
+            [rel_err(s, full[:, 1 + i]) for i, s in enumerate(step_logits)]
+        prof = profile_call(torch, lambda: model.decode_step(
+            params, toks[:, -1:], cache, SERVE_T + SERVE_TF),
+            f"{label} decode step")
+    torch.cuda.synchronize()
+
+    decode = steady(step_ms)
+    gen_ms = [r["ms"] for r in gens]
+    busy = None if prof["device_busy_ms"] == 0 else \
+        prof["device_busy_ms"] / prof["wall_ms"]
+    res = {
+        "arch": arch, "params": n_params, "param_bytes": param_bytes,
+        "init_s": init_s, "prefill_ms": prefill_ms,
+        "decode_ms": step_ms, "decode_ms_median": decode["median"],
+        "decode_tokens_per_s": SERVE_B / decode["median"] * 1e3,
+        "generate_ms": gen_ms,
+        "generate_tokens_per_s": SERVE_B * SERVE_NEW / min(gen_ms) * 1e3,
+        "peak_bytes": peak, "busy_share": busy, "profile": prof,
+        "err_prefill_vs_plain": err_a, "err_decode_vs_forward": errs_b,
+        "tol": [tol_a, tol_b], "launches": gens[0]["launches"],
+        "launches_per_step": per_prefill,
+        "prefill_launches": prefill_launches, "step_launches": step_launches,
+        "tokens": gens[0]["out"].tokens[0].tolist()}
+    print(f"  {label} prefill ms {prefill_ms:.3f} (B={SERVE_B} x {SERVE_T} "
+          f"tokens: {SERVE_B * SERVE_T / prefill_ms * 1e3:.0f} tokens/s)")
+    print(f"  {label} decode ms per token {decode['median']:.3f} (median of "
+          f"{decode['n']} steps after the first {decode['first']:.3f}; max "
+          f"{decode['max']:.3f}): {res['decode_tokens_per_s']:.1f} tokens/s "
+          f"at B={SERVE_B}")
+    print(f"  {label} generate ms {gen_ms} ({SERVE_B} x {SERVE_NEW} tokens, "
+          f"prefill included): {res['generate_tokens_per_s']:.1f} tokens/s")
+    print(f"  {label} peak memory {peak / 2 ** 30:.3f} GiB over generate")
+    print(f"  {label} decode-step device busy share "
+          f"{'not measured' if busy is None else f'{busy:.3f}'}")
+    print(f"  {label} (a) kernel vs plain prefill: {err_a:.4e} of the "
+          f"largest |logit| (tol {tol_a}); (b) prefill and decode steps vs "
+          f"the kernel forward: {[f'{e:.4e}' for e in errs_b]} (tol {tol_b})")
+    print(f"  {label} launches per generate {[r['launches'] for r in gens]}, "
+          f"prefill {prefill_launches} (expected {per_prefill}); per "
+          f"decode step {step_launches}")
+    finite = all(bool(torch.isfinite(t).all()) for t in
+                 [r["out"].prefill_logits for r in gens] + step_logits +
+                 [logits, plain_logits, full])
+    same = torch.equal(gens[0]["out"].tokens, gens[1]["out"].tokens) and \
+        torch.equal(gens[0]["out"].prefill_logits,
+                    gens[1]["out"].prefill_logits)
+    tokens = gens[0]["out"].tokens
+    print(f"  {label} greedy runs bitwise equal: {same}; tokens of row 0 "
+          f"{res['tokens']}")
+    if not finite:
+        fail(f"{label}: a logit is not finite")
+    if tuple(tokens.shape) != (SERVE_B, SERVE_NEW) or \
+            not bool(((tokens >= 0) & (tokens < cfg.vocab)).all()):
+        fail(f"{label}: tokens {tuple(tokens.shape)} out of shape or range")
+    if not err_a <= tol_a:
+        fail(f"{label}: (a) kernel prefill {err_a} from the plain one")
+    if not max(errs_b) <= tol_b:
+        fail(f"{label}: (b) decode {max(errs_b)} from the kernel forward")
+    if not same:
+        fail(f"{label}: two greedy generate runs differ")
+    zero = {k: 0 for k in per_prefill}
+    if any(r["launches"] != per_prefill for r in gens) or \
+            prefill_launches != per_prefill or \
+            any(s != zero for s in step_launches):
+        fail(f"{label}: launches differ from {per_prefill} per prefill and "
+             f"none per decode step")
+    return res
+
+
 def steady(ms):
     rest = sorted(ms[1:])
     return {"median": statistics.median(rest), "max": rest[-1],
@@ -1269,6 +1471,7 @@ def main() -> int:
     root = Path(__file__).resolve().parent
     sys.path.insert(0, str(root / "src"))
     from repro_torch import api
+    from repro_torch import configs
     from repro_torch import data as data_mod
     from repro_torch.checkpoint import store
     from repro_torch.configs import zamba2_7b
@@ -1280,8 +1483,10 @@ def main() -> int:
     from repro_torch.kernels import int8_quant as iq
     from repro_torch.kernels import ref
     from repro_torch.models import cnn
+    from repro_torch.models.lm import model as lm_model
     from repro_torch.models.lm.fleet_configs import FLEET_GLA
     from repro_torch.models.lm.layerstack import lm_layerstack
+    from repro_torch.serve import engine
     from repro_torch.train import loop
     kernels = {"int8_quant": iq, "flash_attention": fa, "gla_scan": gs}
 
@@ -1402,13 +1607,24 @@ def main() -> int:
          torch.backends.cudnn.benchmark) = flags
     torch.cuda.empty_cache()
 
+    # 9. serving: the published configs, full depth, through generate
+    serve_runs = {}
+    for arch in SERVE_ARCHS:
+        print(f"main path: serving {arch} (published config, use_flash, "
+              f"use_gla_kernel), B={SERVE_B}, prompt {SERVE_T}, "
+              f"{SERVE_NEW} greedy new tokens")
+        serve_runs[arch] = run_serve(torch, kernels, configs, lm_model,
+                                     engine, arch)
+        torch.cuda.empty_cache()
+
     path_runs = {"alexnet_M1": runs[1], "alexnet_M4": runs[4],
                  "alexnet_train_M1": train_runs[1],
                  "alexnet_train_M4": train_runs[4],
                  "fleet_gla_M1": lm_runs[1], "fleet_gla_M4": lm_runs[4],
                  "zamba2_7b": z7,
                  **{f"alexnet_tree_E{e}": r for e, r in tree_runs.items()},
-                 "alexnet_train_tree_E2": tree_train}
+                 "alexnet_train_tree_E2": tree_train,
+                 **{f"serve_{a}": r for a, r in serve_runs.items()}}
     paths = {k: r["launches"] for k, r in path_runs.items()}
     held = set(alexnet_rows)
     seen = {k: r["wire_rows"] for k, r in path_runs.items()
@@ -1438,13 +1654,13 @@ def main() -> int:
         "alexnet_tree_e1_vs_star": tree_e1,
         "alexnet_train_tree_E2": tree_train,
         "measure_profile": measured,
-        "zamba2_7b": z7, "launches": paths,
+        "zamba2_7b": z7, "serve": serve_runs, "launches": paths,
         "tensor_cores": tensor_cores,
         "quantizer_cases": list(qcases.values()),
         "flash_cases": list(fcases.values()),
         "gla_cases": list(gcases.values())}, default=str))
 
-    # 9. kernels line
+    # 10. kernels line
     def entry(name, source, replaces, main, cases, ok_key):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,

@@ -1,8 +1,9 @@
 """Parameters across the package boundary, as numpy arrays.
 
-The port keeps the JAX package's parameter layout (a list with one
-nested dict of arrays per cut-point), so carrying weights over is only a
-conversion of arrays.  bf16 crosses without ``ml_dtypes``: a numpy array
+The port keeps the JAX package's parameter layouts (a list with one
+nested dict of arrays per cut-point for a layer stack; one nested dict
+with stacked ``[L, ...]`` leaves for a ``build_model`` model), so
+carrying weights over is only a conversion of arrays.  bf16 crosses without ``ml_dtypes``: a numpy array
 whose dtype is named ``bfloat16`` (what JAX hands out) is viewed as
 ``uint16`` bits, carried into an ``int16`` tensor and viewed as
 ``torch.bfloat16``, so no value is rounded.  numpy has no bf16 of its
@@ -53,3 +54,14 @@ def params_from_numpy(params: Sequence[Dict[str, Any]],
 def params_to_numpy(params: Sequence[Dict[str, Any]]
                     ) -> List[Dict[str, Any]]:
     return [_tree(_to_array, p) for p in params]
+
+
+def model_params_from_numpy(params: Dict[str, Any], device: Device = None
+                            ) -> Dict[str, Any]:
+    """Tensors on ``device`` (default CPU) from one nested dict of
+    array-likes: the layout of ``build_model(cfg).init``."""
+    return _tree(lambda v: _to_tensor(v, device), params)
+
+
+def model_params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
+    return _tree(_to_array, params)

@@ -1,10 +1,11 @@
 """Grouped-query self-attention with RoPE and sliding windows.
 
-The port of the training path of :mod:`repro.models.lm.attention`:
-``init_attention``, ``_project_qkv``, the quadratic reference ``mha``
-(the oracle of the flash kernel) and ``self_attention``, whose
-``use_flash`` switch routes onto the CUDA flash-attention kernel.  The
-blocked, cross-attention and decode paths come with serving.
+The port of :mod:`repro.models.lm.attention`: ``init_attention``,
+``_project_qkv``, the quadratic reference ``mha`` (the oracle of the
+flash kernel) with its memory-bounded blocked form, ``self_attention``,
+whose ``use_flash`` switch routes onto the CUDA flash-attention kernel,
+and the serving path's ``decode_self_attention``.  ``cross_attention``
+comes with the encdec family.
 """
 from __future__ import annotations
 
@@ -56,18 +57,25 @@ def _project_qkv(p: Params, x: torch.Tensor, kv_src: torch.Tensor,
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-        window: int = 0) -> torch.Tensor:
+        window: int = 0, q_offset: int = 0, block_q: int = 0
+        ) -> torch.Tensor:
     """Reference attention.  q: [B,T,H,hd]; k/v: [B,S,KV,hd].
 
     ``window > 0`` = sliding window (each query sees the previous
-    ``window`` keys inclusive).  Grouped einsum: no materialized
+    ``window`` keys inclusive).  ``q_offset`` is the absolute position of
+    q[.,0] minus that of k[.,0].  ``block_q > 0`` switches to the blocked
+    evaluation when it divides a longer T, so the scores never hold more
+    than ``block_q`` query rows.  Grouped einsum: no materialized
     head-repeat of K/V."""
+    if block_q and q.shape[1] > block_q and q.shape[1] % block_q == 0:
+        return _mha_blocked(q, k, v, causal=causal, window=window,
+                            block_q=block_q)
     B, T, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
     rep = H // KV
     qf = (q.float() / math.sqrt(hd)).reshape(B, T, KV, rep, hd)
     logits = torch.einsum("btkrh,bskh->bktrs", qf, k.float())
-    qpos = torch.arange(T, device=q.device)
+    qpos = torch.arange(T, device=q.device) + q_offset
     kpos = torch.arange(S, device=q.device)
     mask = torch.ones((T, S), dtype=torch.bool, device=q.device)
     if causal:
@@ -81,11 +89,22 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     return out.reshape(B, T, H, hd).to(q.dtype)
 
 
+def _mha_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 causal: bool, window: int, block_q: int) -> torch.Tensor:
+    """Query blocks one after another; each block takes a full softmax row
+    against all of K/V (no online accumulation needed)."""
+    T = q.shape[1]
+    return torch.cat([mha(q[:, i:i + block_q], k, v, causal=causal,
+                          window=window, q_offset=i)
+                      for i in range(0, T, block_q)], dim=1)
+
+
 def self_attention(p: Params, x: torch.Tensor, *, n_heads: int,
                    n_kv_heads: int, head_dim: int, causal: bool,
                    rope_theta: float = 0.0, window: int = 0,
                    positions: Optional[torch.Tensor] = None,
-                   use_flash: bool = False) -> torch.Tensor:
+                   use_flash: bool = False, block_q: int = 0
+                   ) -> torch.Tensor:
     B, T, _ = x.shape
     q, k, v = _project_qkv(p, x, x, n_heads, n_kv_heads, head_dim)
     if rope_theta > 0:
@@ -97,5 +116,43 @@ def self_attention(p: Params, x: torch.Tensor, *, n_heads: int,
         from repro_torch.kernels import ops as kops
         out = kops.flash_attention(q, k, v, causal=causal, window=window)
     else:
-        out = mha(q, k, v, causal=causal, window=window)
+        out = mha(q, k, v, causal=causal, window=window, block_q=block_q)
     return out.reshape(B, T, n_heads * head_dim) @ p["wo"]
+
+
+# ---------------------------------------------------------------------------
+# Decode path (single new token against a KV cache)
+# ---------------------------------------------------------------------------
+
+def decode_self_attention(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
+                          cache_v: torch.Tensor, pos: int, *, n_heads: int,
+                          n_kv_heads: int, head_dim: int,
+                          rope_theta: float = 0.0, window: int = 0
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """x: [B, 1, D]; cache_k/v: [B, S, KV, hd]; pos: the absolute position
+    being written.  The new K/V row is written into the caches in place
+    (no copy of the cache per token); returns (out, cache_k, cache_v)."""
+    B = x.shape[0]
+    pos = int(pos)
+    q, k, v = _project_qkv(p, x, x, n_heads, n_kv_heads, head_dim)
+    if rope_theta > 0:
+        posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+        q = apply_rope(q, posv, rope_theta)
+        k = apply_rope(k, posv, rope_theta)
+    cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
+    S, KV = cache_k.shape[1], cache_k.shape[2]
+    rep = n_heads // KV
+    qf = (q.float() / math.sqrt(head_dim)).reshape(B, 1, KV, rep, head_dim)
+    logits = torch.einsum("btkrh,bskh->bktrs", qf, cache_k.float())
+    kpos = torch.arange(S, device=x.device)
+    valid = kpos <= pos
+    if window > 0:
+        valid &= kpos > pos - window
+    logits = torch.where(valid[None, None, None, None, :], logits,
+                         torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bktrs,bskh->btkrh", probs, cache_v.float())
+    out = out.to(x.dtype).reshape(B, 1, n_heads * head_dim)
+    return out @ p["wo"], cache_k, cache_v

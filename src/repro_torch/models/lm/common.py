@@ -9,7 +9,7 @@ the JAX module are no-ops without a mesh and are dropped here.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -114,3 +114,39 @@ def apply_gelu_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     h = F.gelu((x @ p["w_up"] + p["b_up"]).float(),
                approximate="tanh").to(x.dtype)
     return h @ p["w_down"] + p["b_down"]
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def chunked_softmax_xent(hidden: torch.Tensor, lm_head: torch.Tensor,
+                         labels: torch.Tensor,
+                         mask: Optional[torch.Tensor] = None,
+                         chunk: int = 512) -> torch.Tensor:
+    """Mean next-token cross-entropy without materializing [B, T, V] at
+    once.
+
+    hidden: [B, T, D] (already final-normed), lm_head: [D, V],
+    labels: [B, T] int, mask: [B, T] (1 = count).  The chunks of the
+    sequence are summed one after another, as the JAX scan sums them.
+    """
+    B, T, D = hidden.shape
+    if mask is None:
+        mask = torch.ones((B, T), dtype=torch.float32, device=hidden.device)
+    n_chunks = max(T // chunk, 1)
+    if T % n_chunks:
+        raise ValueError(f"T={T} does not split into {n_chunks} chunks")
+    cs = T // n_chunks
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(n_chunks):
+        hc = hidden[:, c * cs:(c + 1) * cs]
+        yc = labels[:, c * cs:(c + 1) * cs].long()
+        mc = mask[:, c * cs:(c + 1) * cs].float()
+        logits = (hc @ lm_head).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, yc[..., None])[..., 0]
+        tot = tot + ((logz - gold) * mc).sum()
+        cnt = cnt + mc.sum()
+    return tot / torch.clamp_min(cnt, 1.0)

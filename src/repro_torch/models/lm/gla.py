@@ -1,8 +1,8 @@
 """Chunked gated linear recurrence ("GLA/SSD" primitive), plain PyTorch.
 
-The port of :mod:`repro.models.lm.gla` (``chunked_gla``; the decode step
-comes with serving).  One primitive covers Mamba2's SSD and xLSTM's
-mLSTM::
+The port of :mod:`repro.models.lm.gla` (``chunked_gla`` and the serving
+path's ``gla_decode_step``).  One primitive covers Mamba2's SSD and
+xLSTM's mLSTM::
 
     S_t = exp(a_t) * S_{t-1} + k_t^T v_t          (state  [dk, dv])
     n_t = exp(a_t) * n_{t-1} + k_t                (normalizer, optional)
@@ -103,3 +103,23 @@ def chunked_gla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                                  n_in_t)
         y = y / torch.clamp_min(denom.abs(), 1.0)[..., None]
     return y.reshape(B, T, H, dv).to(v.dtype), (S, n)
+
+
+def gla_decode_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    log_decay: torch.Tensor,
+                    state: Tuple[torch.Tensor, torch.Tensor], *,
+                    normalize: bool = False
+                    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor,
+                                                   torch.Tensor]]:
+    """Single-token recurrent step, in f32.  q,k: [B,H,dk]; v: [B,H,dv];
+    log_decay: [B,H]; state: (S [B,H,dk,dv], n [B,H,dk])."""
+    S, n = state
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    a = torch.exp(log_decay.float())
+    S = a[..., None, None] * S + kf[..., :, None] * vf[..., None, :]
+    n = a[..., None] * n + kf
+    y = torch.einsum("bhk,bhkv->bhv", qf, S)
+    if normalize:
+        denom = torch.einsum("bhk,bhk->bh", qf, n).abs()
+        y = y / torch.clamp_min(denom, 1.0)[..., None]
+    return y.to(v.dtype), (S, n)

@@ -1,27 +1,47 @@
-"""LM model zoo: the config dataclass and the blocks the layer stack runs.
+"""LM model zoo: one config dataclass, one builder, two families.
 
-The port of the training blocks of :mod:`repro.models.lm.model`:
-``LMConfig`` (``dtype`` is a ``torch.dtype``), the norm and MLP
-dispatch, and the transformer block that the dense family stacks and
-the zamba family interleaves with its Mamba2 blocks.  The MoE block,
-``build_model`` and the prefill/decode paths come with their slices
-(ROADMAP.md).  Field names and defaults are the JAX config's, so a
-config converts field by field (``moe`` and ``xlstm`` hold the JAX
-package's sub-configs only as opaque values until those families land).
+The port of :mod:`repro.models.lm.model` for the ``dense`` and ``zamba``
+families: ``LMConfig`` (``dtype`` is a ``torch.dtype``), the norm and MLP
+dispatch, the transformer block, and ``build_model``, whose ``Model``
+exposes, as the reference's does::
+
+    init(generator, device)                  -> params
+    hidden_fn(params, batch)                 -> [B, T, D]
+    loss_fn(params, batch)                   -> scalar  (train objective)
+    prefill(params, batch, max_len)          -> (last_logits, cache)
+    decode_step(params, tok, cache, pos)     -> (logits, cache)
+    init_cache(batch, max_len, device)       -> cache
+
+Params keep the reference's stacked layout (``[L, ...]`` leaves under
+``layers`` or ``mamba``), so a tree converts leaf by leaf
+(:func:`repro_torch.convert.model_params_from_numpy`); where the
+reference scans over the stacked axis, the port loops over layers and
+indexes each leaf.  The cache is allocated at ``max_len`` by ``prefill``
+and ``decode_step`` writes each new row into it in place: the returned
+cache is the one passed in, equal to the reference's new one.  The
+``moe``, ``xlstm`` and ``encdec`` families raise ``NotImplementedError``
+(ROADMAP.md, queue 1 item 6); their sub-configs are held here only as
+opaque values.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.lm import attention as attn
+from repro_torch.models.lm import ssm as ssm_mod
 from repro_torch.models.lm.common import (Params, apply_geglu,
-                                          apply_gelu_mlp, apply_swiglu,
+                                          apply_gelu_mlp, apply_rope,
+                                          apply_swiglu, chunked_softmax_xent,
                                           init_gelu_mlp, init_swiglu,
-                                          layer_norm, rms_norm)
+                                          layer_norm, rms_norm,
+                                          truncated_normal_init)
 from repro_torch.models.lm.ssm import SSMConfig
+
+LATER_FAMILIES = ("moe", "xlstm", "encdec")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,7 +143,8 @@ def _apply_block(cfg: LMConfig, p: Params, x: torch.Tensor, window: int,
     h = attn.self_attention(
         p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.hd, causal=causal, rope_theta=cfg.rope_theta,
-        window=window, positions=positions, use_flash=cfg.use_flash)
+        window=window, positions=positions, use_flash=cfg.use_flash,
+        block_q=cfg.attn_block_q)
     x = x + h
     h = _apply_norm(cfg, p["ln2"], x)
     return x + _apply_mlp(cfg, p["mlp"], h)
@@ -138,3 +159,366 @@ def _group_layout(cfg: LMConfig) -> Tuple[int, int, int]:
         g = cfg.global_every
         return cfg.n_layers // g, g, cfg.n_layers % g
     return 0, 0, cfg.n_layers
+
+
+def _prefill_block(cfg: LMConfig, p: Params, x: torch.Tensor, cache: Params,
+                   window: int) -> Tuple[torch.Tensor, Params]:
+    """Transformer block forward that also fills its KV cache: rows
+    ``[:T]`` of ``cache`` (``{"k", "v"}``, ``[B, max_len, KV, hd]``) are
+    written in place; the rows after them stay as they were (zeros)."""
+    B, T, _ = x.shape
+    h = _apply_norm(cfg, p["ln1"], x)
+    q, k, v = attn._project_qkv(p["attn"], h, h, cfg.n_heads,
+                                cfg.n_kv_heads, cfg.hd)
+    if cfg.rope_theta > 0:
+        pos = torch.arange(T, device=x.device)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    if cfg.use_flash:
+        from repro_torch.kernels import ops as kops
+        o = kops.flash_attention(q, k, v, causal=True, window=window)
+    else:
+        o = attn.mha(q, k, v, causal=True, window=window,
+                     block_q=cfg.attn_block_q)
+    x = x + o.reshape(B, T, -1) @ p["attn"]["wo"]
+    h = _apply_mlp(cfg, p["mlp"], _apply_norm(cfg, p["ln2"], x))
+    cache["k"][:, :T] = k.to(cache["k"].dtype)
+    cache["v"][:, :T] = v.to(cache["v"].dtype)
+    return x + h, cache
+
+
+def _decode_block(cfg: LMConfig, p: Params, x: torch.Tensor, cache: Params,
+                  pos: int, window: int) -> Tuple[torch.Tensor, Params]:
+    h = _apply_norm(cfg, p["ln1"], x)
+    h, ck, cv = attn.decode_self_attention(
+        p["attn"], h, cache["k"], cache["v"], pos, n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+        rope_theta=cfg.rope_theta, window=window)
+    x = x + h
+    h = _apply_mlp(cfg, p["mlp"], _apply_norm(cfg, p["ln2"], x))
+    return x + h, {"k": ck, "v": cv}
+
+
+def _maybe_remat(cfg: LMConfig, fn: Callable) -> Callable:
+    """``fn`` recomputed in the backward (``cfg.remat``) when autograd
+    records; the values are the same either way."""
+    if not cfg.remat:
+        return fn
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False)
+    return wrapped
+
+
+# ---------------------------------------------------------------------------
+# nested-dict trees
+# ---------------------------------------------------------------------------
+
+def _map(fn: Callable, tree: Params) -> Params:
+    return {k: _map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def _leaves(tree: Params) -> List[torch.Tensor]:
+    out = []
+    for v in tree.values():
+        out += _leaves(v) if isinstance(v, dict) else [v]
+    return out
+
+
+def _index(tree: Params, i) -> Params:
+    """Entry ``i`` of every stacked leaf (views, no copy)."""
+    return _map(lambda a: a[i], tree)
+
+
+def _write(dst: Params, src: Params) -> None:
+    """Copy the leaves of ``src`` into those of ``dst`` in place."""
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _write(dst[k], v)
+        else:
+            dst[k].copy_(v)
+
+
+def _stacked(n: int, init_one: Callable[[], Params]) -> Params:
+    """``n`` draws of ``init_one()`` stacked leaf by leaf into ``[n, ...]``
+    tensors.  Each layer is drawn at its own shape, so its fan-in is the
+    reference's under ``vmap`` (never ``n``); the stack and one layer are
+    held at a time."""
+    first = init_one()
+    out = _map(lambda a: a.new_empty((n,) + tuple(a.shape)), first)
+    for i in range(n):
+        _write(_index(out, i), first if i == 0 else init_one())
+    return out
+
+
+def _split_groups(stacked: Params, n_groups: int, g: int
+                  ) -> Tuple[Params, Params, Params]:
+    """Split ``[L, ...]`` stacked leaves into (local ``[ng, g-1, ...]``,
+    global ``[ng, ...]``, rest ``[n_rest, ...]``), as views: a cache
+    written through them is written in the reference's merged ``[ng*g +
+    n_rest]`` order, each group's local layers before its global one."""
+    def grouped(a):
+        return a[:n_groups * g].reshape((n_groups, g) + tuple(a.shape[1:]))
+
+    local = _map(lambda a: grouped(a)[:, :-1], stacked)
+    glob = _map(lambda a: grouped(a)[:, -1], stacked)
+    rest = _map(lambda a: a[n_groups * g:], stacked)
+    return local, glob, rest
+
+
+def _decoder_layers(cfg: LMConfig, stacked: Params
+                    ) -> List[Tuple[Params, int]]:
+    """(layer slice of ``stacked``, attention window) of each decoder
+    layer, in the order the reference's scans run them: one uniform
+    stack, or per group its ``g-1`` local layers then its global one,
+    then the rest."""
+    ng, g, n_rest = _group_layout(cfg)
+    sw = cfg.sliding_window
+    if ng == 0:
+        return [(_index(stacked, i), sw) for i in range(cfg.n_layers)]
+    local, glob, rest = _split_groups(stacked, ng, g)
+    out = []
+    for gi in range(ng):
+        out += [(_index(local, (gi, j)), sw) for j in range(g - 1)]
+        out.append((_index(glob, gi), 0))
+    return out + [(_index(rest, i), sw) for i in range(n_rest)]
+
+
+# ---------------------------------------------------------------------------
+# Model build — per family
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Model:
+    cfg: LMConfig
+    init: Callable[..., Params]          # (generator, device=None)
+    hidden_fn: Callable[[Params, Dict[str, torch.Tensor]], torch.Tensor]
+    loss_fn: Callable[[Params, Dict[str, torch.Tensor]], torch.Tensor]
+    prefill: Callable[..., Tuple[torch.Tensor, Params]]
+    decode_step: Callable[..., Tuple[torch.Tensor, Params]]
+    init_cache: Callable[..., Params]    # (batch, max_len, device=None)
+
+
+def build_model(cfg: LMConfig) -> Model:
+    if cfg.family == "dense":
+        return _build_decoder(cfg)
+    if cfg.family == "zamba":
+        return _build_zamba(cfg)
+    if cfg.family in LATER_FAMILIES:
+        raise NotImplementedError(
+            f"the {cfg.family} family is not ported to repro_torch yet "
+            f"(ROADMAP.md, queue 1 item 6: the MoE, xlstm and encdec "
+            f"families)")
+    raise ValueError(f"unknown family {cfg.family}")
+
+
+# --- shared head/embedding helpers ----------------------------------------
+
+def _init_head(generator: torch.Generator, cfg: LMConfig, device=None
+               ) -> Params:
+    return {
+        "embed": truncated_normal_init(generator, (cfg.vocab, cfg.d_model),
+                                       1.0, cfg.dtype, device),
+        "final_norm": _init_norm(cfg, device),
+        "lm_head": truncated_normal_init(generator, (cfg.d_model, cfg.vocab),
+                                         1.0, cfg.dtype, device),
+    }
+
+
+def _embed_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    emb = params["embed"]
+    return emb.index_select(0, tokens.reshape(-1)).reshape(
+        tuple(tokens.shape) + (emb.shape[1],))
+
+
+def _prefix_embeds(params: Params, batch: Dict[str, torch.Tensor],
+                   cfg: LMConfig) -> torch.Tensor:
+    """token embeddings, with optional frontend-stub prefix concatenated."""
+    x = _embed_tokens(params, batch["tokens"])
+    if "embeds" in batch:
+        x = torch.cat([batch["embeds"].to(x.dtype), x], dim=1)
+    return x
+
+
+def _loss_from_hidden(cfg: LMConfig, params: Params, hidden: torch.Tensor,
+                      batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    hidden = _apply_norm(cfg, params["final_norm"], hidden)
+    if "embeds" in batch:  # prefix positions carry no LM loss
+        hidden = hidden[:, batch["embeds"].shape[1]:]
+    return chunked_softmax_xent(hidden, params["lm_head"], batch["targets"],
+                                batch.get("mask"), chunk=cfg.loss_chunk)
+
+
+def _last_logits(cfg: LMConfig, params: Params, x: torch.Tensor
+                 ) -> torch.Tensor:
+    """f32 logits of the last position; the product in the model dtype,
+    then the cast, as the reference orders them."""
+    x = _apply_norm(cfg, params["final_norm"], x[:, -1:])
+    return (x @ params["lm_head"]).float()[:, 0]
+
+
+# --- dense decoder -----------------------------------------------------------
+
+def _build_decoder(cfg: LMConfig) -> Model:
+    def init(generator: torch.Generator, device=None) -> Params:
+        dev = generator.device if device is None else torch.device(device)
+        p = _init_head(generator, cfg, dev)
+        p["layers"] = _stacked(cfg.n_layers,
+                               lambda: _init_block(generator, cfg, dev))
+        return p
+
+    def hidden_fn(params: Params, batch: Dict[str, torch.Tensor]
+                  ) -> torch.Tensor:
+        x = _prefix_embeds(params, batch, cfg)
+        block = _maybe_remat(
+            cfg, lambda x, lp, w: _apply_block(cfg, lp, x, w))
+        for lp, window in _decoder_layers(cfg, params["layers"]):
+            x = block(x, lp, window)
+        return x
+
+    def loss_fn(params, batch):
+        return _loss_from_hidden(cfg, params, hidden_fn(params, batch),
+                                 batch)
+
+    def init_cache(batch: int, max_len: int, device=None) -> Params:
+        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
+        return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+                "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
+    def prefill(params: Params, batch: Dict[str, torch.Tensor], max_len: int
+                ) -> Tuple[torch.Tensor, Params]:
+        """Run the full prompt, return (last-position logits, filled cache)."""
+        x = _prefix_embeds(params, batch, cfg)
+        cache = init_cache(x.shape[0], max_len, x.device)
+        for (lp, window), (lc, _) in zip(
+                _decoder_layers(cfg, params["layers"]),
+                _decoder_layers(cfg, cache)):
+            x, _ = _prefill_block(cfg, lp, x, lc, window)
+        return _last_logits(cfg, params, x), cache
+
+    def decode_step(params: Params, tok: torch.Tensor, cache: Params,
+                    pos: int) -> Tuple[torch.Tensor, Params]:
+        x = _embed_tokens(params, tok)          # [B, 1, D]
+        for (lp, window), (lc, _) in zip(
+                _decoder_layers(cfg, params["layers"]),
+                _decoder_layers(cfg, cache)):
+            x, _ = _decode_block(cfg, lp, x, lc, pos, window)
+        return _last_logits(cfg, params, x), cache
+
+    return Model(cfg, init, hidden_fn, loss_fn, prefill, decode_step,
+                 init_cache)
+
+
+# --- zamba: mamba2 backbone + shared attention block ------------------------
+
+def _build_zamba(cfg: LMConfig) -> Model:
+    if cfg.ssm is None or cfg.shared_attn_every <= 0:
+        raise ValueError("a zamba config needs ssm and shared_attn_every > 0")
+    g = cfg.shared_attn_every
+    ng = cfg.n_layers // g                      # groups ending in shared blk
+    window = cfg.sliding_window
+
+    def order():
+        """("mamba", layer) and ("attn", group) in the reference's order:
+        each group's ``g`` Mamba2 layers then the shared block, then the
+        ``n_layers - ng*g`` trailing Mamba2 layers."""
+        for gi in range(ng):
+            yield from (("mamba", i) for i in range(gi * g, (gi + 1) * g))
+            yield "attn", gi
+        yield from (("mamba", i) for i in range(ng * g, cfg.n_layers))
+
+    def init(generator: torch.Generator, device=None) -> Params:
+        dev = generator.device if device is None else torch.device(device)
+        p = _init_head(generator, cfg, dev)
+        p["mamba"] = _stacked(cfg.n_layers, lambda: {
+            "pre": _init_norm(cfg, dev),
+            "m": ssm_mod.init_mamba2(generator, cfg.d_model, cfg.ssm,
+                                     cfg.dtype, dev)})
+        p["shared"] = _init_block(generator, cfg, dev)
+        return p
+
+    def hidden_fn(params: Params, batch: Dict[str, torch.Tensor]
+                  ) -> torch.Tensor:
+        x = _embed_tokens(params, batch["tokens"])
+
+        def mamba(x, lp):
+            h = _apply_norm(cfg, lp["pre"], x)
+            return x + ssm_mod.apply_mamba2(lp["m"], h, cfg.ssm,
+                                            use_kernel=cfg.use_gla_kernel)
+        mamba = _maybe_remat(cfg, mamba)
+        shared = _maybe_remat(cfg, lambda x, p: _apply_block(cfg, p, x,
+                                                             window))
+        for kind, i in order():
+            if kind == "mamba":
+                x = mamba(x, _index(params["mamba"], i))
+            else:
+                x = shared(x, params["shared"])
+        return x
+
+    def loss_fn(params, batch):
+        return _loss_from_hidden(cfg, params, hidden_fn(params, batch),
+                                 batch)
+
+    def init_cache(batch: int, max_len: int, device=None) -> Params:
+        m = ssm_mod.init_mamba2_cache(batch, cfg.d_model, cfg.ssm, cfg.dtype,
+                                      device)
+        shape = (ng, batch, max_len, cfg.n_kv_heads, cfg.hd)
+        return {
+            "mamba": _map(lambda a: a.new_zeros((cfg.n_layers,)
+                                                + tuple(a.shape)), m),
+            "attn": {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+                     "v": torch.zeros(shape, dtype=cfg.dtype, device=device)},
+        }
+
+    def prefill(params: Params, batch: Dict[str, torch.Tensor], max_len: int
+                ) -> Tuple[torch.Tensor, Params]:
+        x = _embed_tokens(params, batch["tokens"])
+        cache = init_cache(x.shape[0], max_len, x.device)
+        for kind, i in order():
+            if kind == "attn":
+                x, _ = _prefill_block(cfg, params["shared"], x,
+                                      _index(cache["attn"], i), window)
+                continue
+            lp = _index(params["mamba"], i)
+            h = _apply_norm(cfg, lp["pre"], x)
+            y, c = ssm_mod.prefill_mamba2(lp["m"], h, cfg.ssm,
+                                          use_kernel=cfg.use_gla_kernel)
+            _write(_index(cache["mamba"], i), c)
+            x = x + y
+        return _last_logits(cfg, params, x), cache
+
+    def decode_step(params: Params, tok: torch.Tensor, cache: Params,
+                    pos: int) -> Tuple[torch.Tensor, Params]:
+        x = _embed_tokens(params, tok)
+        for kind, i in order():
+            if kind == "attn":
+                x, _ = _decode_block(cfg, params["shared"], x,
+                                     _index(cache["attn"], i), pos, window)
+                continue
+            lp = _index(params["mamba"], i)
+            lc = _index(cache["mamba"], i)
+            h = _apply_norm(cfg, lp["pre"], x)
+            y, nc = ssm_mod.decode_mamba2(lp["m"], h, lc, cfg.ssm)
+            _write(lc, nc)
+            x = x + y
+        return _last_logits(cfg, params, x), cache
+
+    return Model(cfg, init, hidden_fn, loss_fn, prefill, decode_step,
+                 init_cache)
+
+
+# ---------------------------------------------------------------------------
+# Parameter accounting (roofline MODEL_FLOPS)
+# ---------------------------------------------------------------------------
+
+def param_count(params: Params) -> int:
+    return sum(a.numel() for a in _leaves(params))
+
+
+def active_param_count(cfg: LMConfig, params: Params) -> int:
+    """Parameters touched per token: every one in the ported (dense and
+    zamba) families; MoE's top-k share comes with that family."""
+    return param_count(params)

@@ -1,7 +1,8 @@
 """Mamba2 (SSD) block on top of the chunked GLA primitive.
 
-The port of the training path of :mod:`repro.models.lm.ssm` (prefill
-and decode come with serving).  Structure per block (pre-norm residual):
+The port of :mod:`repro.models.lm.ssm`: the training path, and the
+serving path's prefill, cache and single-token decode.  Structure per
+block (pre-norm residual):
 in_proj -> [z | xBC | dt]; depthwise causal conv4 + silu on xBC; SSD
 recurrence (q=C, k=dt*B, v=x heads, decay=exp(-exp(A_log)*dt)); skip
 D*x; gate y*silu(z); RMSNorm; out_proj.
@@ -16,7 +17,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.lm.common import (Params, rms_norm,
                                           truncated_normal_init)
-from repro_torch.models.lm.gla import chunked_gla
+from repro_torch.models.lm.gla import chunked_gla, gla_decode_step
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,3 +119,58 @@ def apply_mamba2(p: Params, x: torch.Tensor, cfg: SSMConfig,
     """x: [B, T, D] -> [B, T, D] (training path)."""
     y, _, _ = _mamba2_forward(p, x, cfg, use_kernel=use_kernel)
     return y
+
+
+def prefill_mamba2(p: Params, x: torch.Tensor, cfg: SSMConfig,
+                   use_kernel: bool = False) -> Tuple[torch.Tensor, Params]:
+    """Prefill path: also return the recurrent cache for decode."""
+    y, conv, S = _mamba2_forward(p, x, cfg, use_kernel=use_kernel)
+    return y, {"conv": conv, "S": S}
+
+
+def init_mamba2_cache(batch: int, d_model: int, cfg: SSMConfig,
+                      dtype: torch.dtype, device=None) -> Params:
+    """conv ``[B, d_conv-1, di+2*d_state]`` in ``dtype``; S ``[B, nh,
+    d_state, head_dim]`` in f32."""
+    di = d_inner(d_model, cfg)
+    nh = di // cfg.head_dim
+    conv_ch = di + 2 * cfg.d_state
+    return {
+        "conv": torch.zeros((batch, cfg.d_conv - 1, conv_ch), dtype=dtype,
+                            device=device),
+        "S": torch.zeros((batch, nh, cfg.d_state, cfg.head_dim),
+                         dtype=torch.float32, device=device),
+    }
+
+
+def decode_mamba2(p: Params, x: torch.Tensor, cache: Params, cfg: SSMConfig
+                  ) -> Tuple[torch.Tensor, Params]:
+    """x: [B, 1, D] single-token step with recurrent state."""
+    B, _, D = x.shape
+    di = d_inner(D, cfg)
+    nh = di // cfg.head_dim
+    zxbcdt = x @ p["in_proj"]
+    z = zxbcdt[..., :di]
+    xBC = zxbcdt[..., di:2 * di + 2 * cfg.d_state]
+    dt_pre = zxbcdt[..., -nh:].float()
+    xBC, new_conv = _causal_conv(xBC, p["conv_w"], p["conv_b"],
+                                 prev=cache["conv"])
+    xBC = F.silu(xBC.float()).to(x.dtype)
+    xin = xBC[..., :di]
+    Bmat = xBC[..., di:di + cfg.d_state]
+    Cmat = xBC[..., di + cfg.d_state:]
+    dt = F.softplus(dt_pre + p["dt_bias"])[:, 0]              # [B,nh]
+    log_decay = -torch.exp(p["A_log"])[None, :] * dt
+
+    v = xin.reshape(B, nh, cfg.head_dim)
+    k = (Bmat[:, 0, None, :] * dt[..., None]).to(x.dtype)
+    q = Cmat[:, 0, None, :].to(x.dtype).expand(B, nh, cfg.d_state)
+    n_dummy = torch.zeros((B, nh, cfg.d_state), dtype=torch.float32,
+                          device=x.device)
+    y, (S_new, _) = gla_decode_step(q, k, v, log_decay,
+                                    (cache["S"], n_dummy))
+    y = y + v * p["D_skip"][None, :, None].to(v.dtype)
+    y = y.reshape(B, 1, di)
+    y = y * F.silu(z.float()).to(y.dtype)
+    y = rms_norm(y, p["norm_w"])
+    return y @ p["out_proj"], {"conv": new_conv, "S": S_new}

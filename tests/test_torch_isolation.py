@@ -1,7 +1,8 @@
-"""The port stands alone: ``src/repro_torch/`` and ``chip_smoke.py``
-import neither ``jax`` nor anything of the ``repro`` package (not even
-its numpy-only modules — the port keeps its own copies), nor
-``ml_dtypes`` (bf16 crosses the package boundary as raw bits)."""
+"""The port stands alone: ``src/repro_torch/``, its examples
+(``examples/*_torch.py``) and ``chip_smoke.py`` import neither ``jax``
+nor anything of the ``repro`` package (not even its numpy-only modules
+— the port keeps its own copies), nor ``ml_dtypes`` (bf16 crosses the
+package boundary as raw bits)."""
 from __future__ import annotations
 
 import ast
@@ -14,7 +15,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
-    [ROOT / "chip_smoke.py"]
+    sorted((ROOT / "examples").glob("*_torch.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
@@ -56,6 +57,10 @@ def test_port_has_files_to_scan():
     assert "src/repro_torch/core/churn.py" in names
     assert "src/repro_torch/core/simulator.py" in names
     assert "src/repro_torch/serve/planner.py" in names
+    assert "src/repro_torch/serve/engine.py" in names
+    assert "src/repro_torch/configs/base.py" in names
+    assert "src/repro_torch/models/lm/model.py" in names
+    assert "examples/serve_lm_torch.py" in names
     assert (ROOT / "chip_smoke.py").exists()
 
 
@@ -79,7 +84,8 @@ def test_importing_the_port_loads_no_jax_or_repro():
         "import repro_torch.data.pipeline, repro_torch.core.churn\n"
         "import repro_torch.core.profiler, repro_torch.core.simulator\n"
         "import repro_torch.core.baselines, repro_torch.serve.planner\n"
-        "import repro_torch.serve.population\n"
+        "import repro_torch.serve.population, repro_torch.serve.engine\n"
+        "import repro_torch.configs, repro_torch.models.lm.model\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
         "'repro', 'ml_dtypes') or m.startswith(('jax.', 'jaxlib.', "
         "'repro.', 'ml_dtypes.')))\n"
