@@ -19,7 +19,8 @@ Phases (every one that fails exits non-zero; there is no CPU path):
    composition it replaced) bitwise, NaN, +-inf, ragged and misaligned
    rows included; flash attention and the GLA scan within the ``TOL``
    rule of tests/test_kernel_oracle.py (``atol + ulps * ulp`` in the
-   storage dtype), at phase 9's prefill shapes too.  Times from CUDA
+   storage dtype), at phase 9's prefill shapes too (the GLA at
+   xlstm-350m's 512-wide heads on the CUDA-core kernel).  Times from CUDA
    events over CUDA-graph replays (device time, L2 warm); the library
    time is one PyTorch call
    computing the same function, where there is one
@@ -58,27 +59,37 @@ Phases (every one that fails exits non-zero; there is no CPU path):
    the tree step and the star step, from the same params and batch under
    ``cudnn.deterministic``, must be bitwise equal.  Then phase 5's
    ``Plan.train`` checks on the E=2 tree, with its own straggler.
-9. Serving zamba2-7b and qwen2.5-3b at their published configs, full
-   depth, bf16, ``use_flash`` and ``use_gla_kernel``: ``build_model`` ->
-   ``init`` on the card -> ``generate`` (B=4 prompts of 2,048 tokens, 32
+9. Serving zamba2-7b, qwen2.5-3b, qwen2-moe-a2.7b, xlstm-350m and
+   whisper-base at their published configs, full depth, and grok-1-314b
+   at its published widths cut to 2 of 64 layers (listed as reduced),
+   bf16, ``use_flash`` and ``use_gla_kernel``: ``build_model`` ->
+   ``init`` on the card -> ``generate`` (B=4 prompts of 2,048 tokens;
+   whisper-base 64 tokens over 1,500 seeded frames, max_len 448; 32
    greedy new tokens), twice, bitwise equal; (a) the kernel prefill's
    last logits against the same prefill on the plain paths, (b) eight
-   teacher-forced decode steps against the kernel forward over 2,056
-   tokens, both within ``SERVE_TOL`` of the largest |logit|; every logit
-   finite; prefill ms, decode ms per token, tokens/s, peak memory and the
-   device busy share of one profiled decode step.
+   teacher-forced decode steps against the kernel forward over the
+   prompt and those tokens (MoE: on a no-drop variant), both within
+   ``SERVE_TOL`` of the largest |logit| (MoE: with the routing of the
+   kernel prefill, or of the forward, replayed on the other side, and
+   the count of token choices that flip without it printed); every
+   logit finite; prefill ms,
+   decode ms per token, tokens/s, peak memory and the device busy share
+   of one profiled decode step.  Each arch's params and cache are freed
+   before the next.
 10. One JSON line of kernels; last, the ``{"ok": true, ...}`` line.
 
 Each main path (4, 5 and 6 per plan, 7, 8 per plan, 9 per generate call)
 zeroes every launch counter just before its steps and reads them just
 after, and fails unless each kernel of the path launched exactly as
 often as the schedule's executed segments (or the model's layers: one
-flash per attention block and one GLA per Mamba2 layer per prefill, none
-per decode step) imply; an AlexNet path that sends the quantizer a row
+flash per attention block (whisper: per encoder layer) and one GLA per
+Mamba2 or mLSTM layer per prefill, none per decode step) imply; an AlexNet path that sends the quantizer a row
 count phase 3 did not hold fails too.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import functools
 import json
 import math
@@ -108,20 +119,41 @@ WIRE_SHAPE_N = 28 * 28 * 64       # AlexNet cut 1: conv1 + pool output
 LM_T, LM_B, LM_LR, LM_STEPS = 512, 64, 5e-4, 4
 Z7_B, Z7_LR, Z7_STEPS = 8, 5e-4, 3
 
-# Serving (phase 9): the published configs at full depth, B prompts of
-# SERVE_T tokens, SERVE_NEW greedy new tokens through ``generate``, and
-# SERVE_TF teacher-forced decode steps held against the forward.
-SERVE_ARCHS = ("zamba2-7b", "qwen2.5-3b")
+# Serving (phase 9): the published configs at full depth (grok-1-314b
+# cut to 2 of its 64 layers: 314B parameters do not fit one card), B
+# prompts of SERVE_T tokens, SERVE_NEW greedy new tokens through
+# ``generate``, and SERVE_TF teacher-forced decode steps held against the
+# forward.  whisper-base takes its own shape: SERVE_FRAMES frames (30 s
+# of audio after the stubbed conv frontend, its max_source_positions), a
+# WHISPER_T-token decoder prompt and max_len WHISPER_MAX_LEN (its
+# max_target_positions).
+SERVE_ARCHS = ("zamba2-7b", "qwen2.5-3b", "qwen2-moe-a2.7b", "xlstm-350m",
+               "whisper-base", "grok-1-314b")
 SERVE_B, SERVE_T, SERVE_NEW, SERVE_TF = 4, 2048, 32, 8
+SERVE_REDUCED = {"grok-1-314b": {"n_layers": 2}}
+SERVE_FRAMES, WHISPER_T, WHISPER_MAX_LEN = 1500, 64, 448
 # (a) kernel prefill vs plain prefill and (b) decode steps vs the kernel
-# forward, as max |difference| over the largest |logit|: twice (margin 2)
-# what tests/test_torch_serve_kernels.py measures on the CPU in bf16 at
-# these archs' full depth, head and state widths (d_model cut to 512 /
-# 448, B=2, T=512), the kernels' rounding emulated: zamba2-7b 0.1261 and
-# 0.0977, qwen2.5-3b 0.0196 and 0.0194.  Random bf16 weights through 81
-# Mamba2 layers amplify a last-bit difference; the kernels themselves
-# are held to the TOL rule in phase 3.
-SERVE_TOL = {"zamba2-7b": (0.26, 0.2), "qwen2.5-3b": (0.04, 0.04)}
+# forward, as max |difference| over the largest |logit| (``rel_err``): at
+# least twice (margin 2) what tests/test_torch_serve_kernels.py and
+# tests/test_torch_serve_tolerances.py measure on the CPU in bf16 at
+# these archs' served depth, expert count, head and
+# state widths (d_model, FF widths and vocab cut, B=2, T=512), the
+# kernels' rounding emulated: zamba2-7b 0.1261 and 0.0977, qwen2.5-3b
+# 0.0196 and 0.0194, xlstm-350m 0.0805 and 0.0486, whisper-base 0.0061
+# and 0.0082.  Random bf16 weights through 81 Mamba2 or 24 xLSTM layers
+# amplify a last-bit difference.  In an MoE a last-bit difference in a
+# router logit flips a token's choice of experts, which moves its output
+# as far as a wrong model would, and at 24 layers of 60 experts the flips
+# reach most rows; so the MoE archs compare with one side's routing
+# replayed on the other (``Routes``), and the flips are counted and
+# printed but not held: measured so, grok-1-314b 0.0094 and 0.0105,
+# qwen2-moe-a2.7b 0.0617 and 0.1120 (0.8616 and 1.2664 with each side's
+# own routing, 17,973 of 24,576 (layer, token) choices flipped in (a)).  The kernels themselves are held to the
+# TOL rule in phase 3, and the ports of these models to JAX's on the CPU
+# (tests/test_torch_serve_families.py).
+SERVE_TOL = {"zamba2-7b": (0.26, 0.2), "qwen2.5-3b": (0.04, 0.04),
+             "qwen2-moe-a2.7b": (0.13, 0.23), "xlstm-350m": (0.17, 0.1),
+             "whisper-base": (0.02, 0.02), "grok-1-314b": (0.02, 0.022)}
 
 # Pinned kernel tolerances of tests/test_kernel_oracle.py:40-49:
 # |got - want| <= atol + ulps * ulp_dtype(|want|).
@@ -453,6 +485,15 @@ FLASH_CASES = (
      "bf16", True, 0),
     ("qwen2_5_3b_prefill_4x16_2048_128_gqa8", 4 * 16, 4 * 2, 2048, 2048,
      128, "bf16", True, 0),
+    # qwen2-moe-a2.7b (B=4 x 16 heads of 128, MHA), grok-1-314b (B=4 x
+    # 48 query heads over 8 KV heads of 128, GQA rep 6) and whisper-base's
+    # encoder (B=4 x 8 heads of 64 over 1,500 frames, non-causal, ragged)
+    ("qwen2_moe_prefill_4x16_2048_128", 4 * 16, 4 * 16, 2048, 2048, 128,
+     "bf16", True, 0),
+    ("grok1_prefill_4x48_2048_128_gqa6", 4 * 48, 4 * 8, 2048, 2048, 128,
+     "bf16", True, 0),
+    ("whisper_base_encoder_4x8_1500_64", 4 * 8, 4 * 8, 1500, 1500, 64,
+     "bf16", False, 0),
 )
 
 
@@ -509,26 +550,45 @@ def check_flash(torch, fa, ref) -> dict:
     return rows
 
 
-# (name, BH, T, dk, dv, chunk, dtype, normalize).  bf16 with dk and dv
-# multiples of 16 (up to 128) runs on the tensor-core kernel, any other
-# bf16 shape and f32 on the CUDA-core one.  The bf16 tensor-core edges:
-# a ragged last chunk, normalizing at W=256, dk != dv with the chunk one
-# 64-row sub-tile; and one bf16 shape (dv=40) on the CUDA cores.
+# (name, BH, T, dk, dv, chunk, dtype, normalize, draw).  bf16 with dk and
+# dv multiples of 16 (up to 128) runs on the tensor-core kernel, any other
+# shape (dk up to 512) on the CUDA-core one.  The bf16 tensor-core edges: a
+# ragged last chunk, normalizing at W=256, dk != dv with the chunk one
+# 64-row sub-tile; on the CUDA cores, one bf16 shape (dv=40), xlstm-350m's
+# prefill (dk 512, eight 64-column pieces of q and k) and ragged at
+# dk = dv = 256.  ``draw`` is "mamba2" (log-decays
+# -softplus(N - 2), k 0.3 N) or "mlstm" (as the mLSTM forms them:
+# log-decays logsigmoid(N(3, 1)), k N / sqrt(dk) times exp(clip(2 N, -8,
+# 8)) per step, so the normalizer matters).
 GLA_CASES = (
     ("fleet_gla_64x16_512_64_W128", 64 * 16, 512, 64, 64, 128, "bf16",
-     False),
+     False, "mamba2"),
     ("zamba2_7b_8x112_512_64_W256", 8 * 112, 512, 64, 64, 256, "bf16",
-     False),
-    ("normalize_16_512_128_W128", 16, 512, 128, 128, 128, "bf16", True),
-    ("f32_ragged_32_300_64_W128", 32, 300, 64, 64, 128, "f32", False),
-    ("f32_normalize_8_96_16x40_W32", 8, 96, 16, 40, 32, "f32", True),
-    ("bf16_ragged_32_300_64_W128", 32, 300, 64, 64, 128, "bf16", False),
-    ("bf16_normalize_64_512_64_W256", 64, 512, 64, 64, 256, "bf16", True),
-    ("bf16_dk128_dv64_32_256_W64", 32, 256, 128, 64, 64, "bf16", False),
-    ("bf16_cuda_cores_8_96_16x40_W32", 8, 96, 16, 40, 32, "bf16", True),
+     False, "mamba2"),
+    ("normalize_16_512_128_W128", 16, 512, 128, 128, 128, "bf16", True,
+     "mamba2"),
+    ("f32_ragged_32_300_64_W128", 32, 300, 64, 64, 128, "f32", False,
+     "mamba2"),
+    ("f32_normalize_8_96_16x40_W32", 8, 96, 16, 40, 32, "f32", True,
+     "mamba2"),
+    ("bf16_ragged_32_300_64_W128", 32, 300, 64, 64, 128, "bf16", False,
+     "mamba2"),
+    ("bf16_normalize_64_512_64_W256", 64, 512, 64, 64, 256, "bf16", True,
+     "mamba2"),
+    ("bf16_dk128_dv64_32_256_W64", 32, 256, 128, 64, 64, "bf16", False,
+     "mamba2"),
+    ("bf16_cuda_cores_8_96_16x40_W32", 8, 96, 16, 40, 32, "bf16", True,
+     "mamba2"),
     # phase 9's zamba2-7b prefill: B=4 x 112 SSM heads, d_state 64
     ("zamba2_7b_prefill_4x112_2048_64_W256", 4 * 112, 2048, 64, 64, 256,
-     "bf16", False),
+     "bf16", False, "mamba2"),
+    # phase 9's xlstm-350m prefill: B=4 x 4 mLSTM heads of 512, W=256
+    ("xlstm_350m_prefill_4x4_2048_512_W256", 4 * 4, 2048, 512, 512, 256,
+     "bf16", True, "mlstm"),
+    ("bf16_dk256_ragged_8_300_256_W128", 8, 300, 256, 256, 128, "bf16",
+     True, "mlstm"),
+    ("f32_dk256_ragged_8_300_256_W128", 8, 300, 256, 256, 128, "f32",
+     False, "mamba2"),
 )
 
 
@@ -544,19 +604,35 @@ def gla_flops(BH: int, T: int, dk: int, dv: int, W: int) -> float:
     return float(T * BH * (2 * W * (dk + dv) + 4 * dk * dv))
 
 
+def gla_inputs(torch, g, BH, T, dk, dv, dtype, draw: str):
+    """q, k, v in ``dtype`` and f32 log-decays, drawn as ``draw`` says
+    (GLA_CASES)."""
+    import torch.nn.functional as F
+    dev = g.device
+    q = torch.randn(BH, T, dk, generator=g, device=dev)
+    k = torch.randn(BH, T, dk, generator=g, device=dev)
+    v = torch.randn(BH, T, dv, generator=g, device=dev)
+    a = torch.randn(BH, T, generator=g, device=dev)
+    if draw == "mlstm":
+        ig = (2.0 * torch.randn(BH, T, 1, generator=g, device=dev)).clamp(
+            -8.0, 8.0)
+        k = k / math.sqrt(dk) * torch.exp(ig)
+        a = F.logsigmoid(a + 3.0)
+    else:
+        k = 0.3 * k
+        a = -F.softplus(a - 2.0)
+    return q.to(dtype), k.to(dtype), v.to(dtype), a
+
+
 def check_gla(torch, gs, ref) -> dict:
     """The GLA scan against its plain version (the step recurrence) at
-    the TOL rule, on Mamba2-like inputs (log-decays -softplus(N - 2))."""
-    import torch.nn.functional as F
+    the TOL rule, on Mamba2-like or mLSTM-like inputs (``gla_inputs``)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 2)
     rows = {}
-    for name, BH, T, dk, dv, W, dt, normalize in GLA_CASES:
+    for name, BH, T, dk, dv, W, dt, normalize, draw in GLA_CASES:
         dtype = torch.bfloat16 if dt == "bf16" else torch.float32
-        q = torch.randn(BH, T, dk, generator=g, device=dev).to(dtype)
-        k = (0.3 * torch.randn(BH, T, dk, generator=g, device=dev)).to(dtype)
-        v = torch.randn(BH, T, dv, generator=g, device=dev).to(dtype)
-        a = -F.softplus(torch.randn(BH, T, generator=g, device=dev) - 2.0)
+        q, k, v, a = gla_inputs(torch, g, BH, T, dk, dv, dtype, draw)
         y, S, n = gs.gla_scan_fwd(q, k, v, a, W, normalize)
         y_r, S_r, n_r = ref.ref_gla(q, k, v, a, normalize=normalize)
         torch.cuda.synchronize()
@@ -572,7 +648,7 @@ def check_gla(torch, gs, ref) -> dict:
             gla_tensor_cores(dk, dv) else "CUDA"
         row = {"case": name, "shape": {"qk": [BH, T, dk], "v": [BH, T, dv]},
                "chunk": W, "dtype": str(dtype), "normalize": normalize,
-               "cores": cores,
+               "draw": draw, "cores": cores,
                "ok": ok_y and ok_s and ok_n,
                "max_abs_err": max(err_y, err_s, err_n), "y_err": err_y,
                "S_err": err_s, "n_err": err_n, "y_err_over_tol": ex_y,
@@ -1297,14 +1373,63 @@ def run_zamba2_7b(torch, api, kernels, stack) -> dict:
 
 def serve_launches(cfg) -> dict:
     """Kernel launches of one prefill: flash once per attention block
-    applied (every layer of a dense model; each of zamba's
-    ``n_layers // shared_attn_every`` shared-block applications), the
-    GLA scan once per Mamba2 layer.  A decode step launches neither."""
+    applied (every layer of a dense or MoE model; each of zamba's
+    ``n_layers // shared_attn_every`` shared-block applications; each
+    encoder layer of whisper, whose decoder prefill runs the plain
+    attention as the reference's does), the GLA scan once per Mamba2 or
+    mLSTM layer.  A decode step launches neither."""
+    launches = {"int8_quant": 0, "flash_attention": 0, "gla_scan": 0}
     if cfg.family == "zamba":
-        return {"int8_quant": 0,
-                "flash_attention": cfg.n_layers // cfg.shared_attn_every,
-                "gla_scan": cfg.n_layers}
-    return {"int8_quant": 0, "flash_attention": cfg.n_layers, "gla_scan": 0}
+        launches["flash_attention"] = cfg.n_layers // cfg.shared_attn_every
+        launches["gla_scan"] = cfg.n_layers
+    elif cfg.family == "xlstm":
+        every = cfg.xlstm.slstm_every
+        launches["gla_scan"] = cfg.n_layers - (cfg.n_layers // every
+                                               if every else 0)
+    elif cfg.family == "encdec":
+        launches["flash_attention"] = cfg.encoder_layers
+    else:
+        launches["flash_attention"] = cfg.n_layers
+    return launches
+
+
+def serve_config(configs, arch: str):
+    """The served config: the published one with the kernels on, cut as
+    ``SERVE_REDUCED`` says."""
+    return configs.get_arch(arch).lm.variant(
+        use_flash=True, use_gla_kernel=True, **SERVE_REDUCED.get(arch, {}))
+
+
+def no_drop_variant(cfg):
+    """An MoE config whose output does not depend on the batch: capacity
+    ``G`` per expert and group (``capacity_factor = n_experts / top_k``),
+    so no token is dropped, in groups of ``SERVE_B`` tokens (a divisor
+    of every token count the serving checks run).  At the published
+    capacity a decode step's group of ``SERVE_B`` tokens has capacity 1
+    and drops tokens, and the forward over ``SERVE_T + SERVE_TF``
+    positions is not a multiple of the published group; so check (b)
+    runs on this variant.  Other families are returned as they are."""
+    if cfg.family != "moe":
+        return cfg
+    moe = dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k,
+        group_size=SERVE_B)
+    return cfg.variant(moe=moe)
+
+
+def serve_inputs(torch, cfg, g) -> tuple:
+    """(prompt batch, tokens ``[B, prompt + SERVE_TF]``, max_len): token
+    prompts from ``g``; whisper-base also gets seeded bf16 frames."""
+    encdec = cfg.family == "encdec"
+    T = WHISPER_T if encdec else SERVE_T
+    toks = torch.randint(0, cfg.vocab, (SERVE_B, T + SERVE_TF),
+                         generator=g, device=g.device)
+    batch = {"tokens": toks[:, :T]}
+    if encdec:
+        batch["frames"] = torch.randn(SERVE_B, SERVE_FRAMES, cfg.d_model,
+                                      generator=g, device=g.device).to(
+                                          cfg.dtype)
+    return batch, toks, WHISPER_MAX_LEN if encdec else T + SERVE_NEW
 
 
 def rel_err(got, want) -> float:
@@ -1313,20 +1438,141 @@ def rel_err(got, want) -> float:
     return float((g - w).abs().max() / w.abs().max())
 
 
+def forward_logits(torch, lm_model, model, params, batch, toks):
+    """f32 logits of the kernel forward (``hidden_fn``) over the prompt
+    and the teacher-forced tokens, from the prompt's last position on:
+    ``[B, 1 + SERVE_TF, V]``."""
+    T = batch["tokens"].shape[1]
+    hidden = model.hidden_fn(params, dict(batch, tokens=toks))
+    h = lm_model._apply_norm(model.cfg, params["final_norm"],
+                             hidden[:, T - 1:])
+    del hidden
+    return (h @ params["lm_head"]).float()
+
+
+def decode_pairs(torch, logits, step_logits, full) -> tuple:
+    """Check (b)'s (got, want) pairs (the prefill's last logits, then
+    each decode step, against the forward) and whether every logit is
+    finite."""
+    pairs = [(logits, full[:, 0])] + \
+        [(s, full[:, 1 + i]) for i, s in enumerate(step_logits)]
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in step_logits + [logits, full])
+    return pairs, finite
+
+
+class Routes:
+    """The experts each MoE layer chooses in one run (``record``: expert
+    ids ``[B, T, K]`` per layer, in call order), then followed by other
+    runs of the same model (``follow``)."""
+
+    def __init__(self):
+        from repro_torch.models.lm import moe
+        self.moe, self.rec, self.flips = moe, [], []
+
+    @contextlib.contextmanager
+    def record(self):
+        def hook(idx):
+            self.rec.append(idx.clone())
+            return idx
+        with self.moe.routing(hook):
+            yield
+
+    @contextlib.contextmanager
+    def follow(self, t0: int, replay: bool):
+        """Each layer routed by the recorded choices at positions ``[t0,
+        t0 + T)`` (``replay``) or by its own; appends to ``flips`` the
+        number of (layer, token) whose own choices differ from the
+        recorded ones."""
+        calls, n = iter(self.rec), []
+
+        def hook(idx):
+            rec = next(calls, None)
+            if rec is None:
+                fail("a run has more MoE layers than the recorded one")
+            want = rec[:, t0:t0 + idx.shape[1]]
+            n.append((idx != want).any(-1).sum())
+            return want if replay else idx
+        with self.moe.routing(hook):
+            yield
+        if len(n) != len(self.rec):
+            fail(f"{len(n)} MoE layers ran, {len(self.rec)} recorded")
+        self.flips.append(int(sum(n)))
+
+
+def decode_logits(model, params, batch, toks, max_len, around) -> tuple:
+    """The prefill's last logits and those of ``SERVE_TF`` teacher-forced
+    decode steps, each call inside ``around(t0)`` (t0 its first
+    position)."""
+    T = batch["tokens"].shape[1]
+    with around(0):
+        logits, cache = model.prefill(params, batch, max_len)
+    steps = []
+    for i in range(SERVE_TF):
+        with around(T + i):
+            step, cache = model.decode_step(params, toks[:, T + i:T + i + 1],
+                                            cache, T + i)
+        steps.append(step)
+    del cache
+    return logits, steps
+
+
+def moe_checks(torch, lm_model, model, plain, params, batch, toks,
+               max_len, logits) -> dict:
+    """Checks (a) and (b) of an MoE arch.  (a): the kernel prefill (its
+    last logits ``logits``) recorded, the plain prefill run with its own
+    routing and with the kernel's replayed.  (b), on ``no_drop_variant``:
+    the kernel forward recorded, prefill and decode steps run with their
+    own routing and with the forward's replayed.  Each run with its own
+    routing counts the (layer, token) choices that differ from the
+    recorded ones."""
+    routes = Routes()
+    with routes.record():
+        rec_logits, cache = model.prefill(params, batch, max_len)
+    del cache
+    if not torch.equal(rec_logits, logits):
+        fail("recording the routing changed the kernel prefill")
+    a, finite = {}, True
+    for replay in (False, True):
+        with routes.follow(0, replay):
+            got, cache = plain.prefill(params, batch, max_len)
+        del cache
+        a[replay] = rel_err(logits, got)
+        finite = finite and bool(torch.isfinite(got).all())
+    flips_a = routes.flips[0]
+
+    model_b = lm_model.build_model(no_drop_variant(model.cfg))
+    routes = Routes()
+    with routes.record():
+        full = forward_logits(torch, lm_model, model_b, params, batch, toks)
+    b = {}
+    for replay in (False, True):
+        first, steps = decode_logits(
+            model_b, params, batch, toks, max_len,
+            lambda t0: routes.follow(t0, replay))
+        pairs, ok = decode_pairs(torch, first, steps, full)
+        b[replay] = [rel_err(g, w) for g, w in pairs]
+        finite = finite and ok
+    return {"err_a": a[True], "err_a_own_routing": a[False],
+            "flips_a": flips_a, "errs_b": b[True],
+            "errs_b_own_routing": b[False],
+            "flips_b": routes.flips[:1 + SERVE_TF], "finite": finite}
+
+
 def run_serve(torch, kernels, configs, lm_model, engine, arch) -> dict:
     """One published config through ``build_model`` -> ``init`` on the
     card -> ``generate`` (twice, greedy; counters zeroed just before each
     and read just after), then the prefill alone, the same prefill on the
-    plain paths (a), ``SERVE_TF`` teacher-forced decode steps against the
-    kernel forward over ``SERVE_T + SERVE_TF`` tokens (b), and one
-    profiled decode step."""
-    cfg = configs.get_arch(arch).lm.variant(use_flash=True,
-                                            use_gla_kernel=True)
+    plain paths (a), ``SERVE_TF`` teacher-forced decode steps (each with
+    its launches) against the kernel forward over the prompt and those
+    tokens (b; for MoE ``moe_checks``), and one profiled decode step.
+    Params and caches are freed before it returns."""
+    cfg = serve_config(configs, arch)
     model = lm_model.build_model(cfg)
     plain = lm_model.build_model(cfg.variant(use_flash=False,
                                              use_gla_kernel=False))
     tol_a, tol_b = SERVE_TOL[arch]
-    max_len = SERVE_T + SERVE_NEW
+    reduced = SERVE_REDUCED.get(arch, {})
     label = f"{arch} serve"
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1336,14 +1582,16 @@ def run_serve(torch, kernels, configs, lm_model, engine, arch) -> dict:
     n_params = lm_model.param_count(params)
     param_bytes = torch.cuda.memory_allocated()
     g = torch.Generator(device="cuda").manual_seed(BATCH_SEED)
-    toks = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_T + SERVE_TF),
-                         generator=g, device="cuda")
-    batch = {"tokens": toks[:, :SERVE_T]}
+    batch, toks, max_len = serve_inputs(torch, cfg, g)
+    T = batch["tokens"].shape[1]
     per_prefill = serve_launches(cfg)
+    frames = "" if "frames" not in batch else \
+        f", frames {tuple(batch['frames'].shape)}"
     print(f"  {label}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{n_params} parameters ({param_bytes / 2 ** 30:.3f} GiB "
           f"allocated), init {init_s:.2f} s; B={SERVE_B}, prompt "
-          f"{SERVE_T}, {SERVE_NEW} new tokens, max_len {max_len}")
+          f"{T}{frames}, {SERVE_NEW} new tokens, max_len {max_len}; "
+          f"reduced {reduced or 'nothing'}")
     with torch.inference_mode():
         torch.cuda.reset_peak_memory_stats()
         gens = []
@@ -1365,31 +1613,44 @@ def run_serve(torch, kernels, configs, lm_model, engine, arch) -> dict:
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
         prefill_launches = read_counters(kernels)
-        plain_logits, plain_cache = plain.prefill(params, batch, max_len)
-        del plain_cache
-        err_a = rel_err(logits, plain_logits)
+        finite = bool(torch.isfinite(logits).all())
+        if cfg.family != "moe":
+            plain_logits, plain_cache = plain.prefill(params, batch, max_len)
+            del plain_cache
+            err_a = rel_err(logits, plain_logits)
+            finite = finite and bool(torch.isfinite(plain_logits).all())
+            del plain_logits
 
         step_ms, step_launches, step_logits = [], [], []
         for i in range(SERVE_TF):
-            tok = toks[:, SERVE_T + i:SERVE_T + i + 1]
+            tok = toks[:, T + i:T + i + 1]
             torch.cuda.synchronize()
             zero_counters(kernels)
             t0 = time.perf_counter()
-            step, cache = model.decode_step(params, tok, cache, SERVE_T + i)
+            step, cache = model.decode_step(params, tok, cache, T + i)
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
             step_launches.append(read_counters(kernels))
             step_logits.append(step)
-        hidden = model.hidden_fn(params, {"tokens": toks})
-        h = lm_model._apply_norm(cfg, params["final_norm"],
-                                 hidden[:, SERVE_T - 1:])
-        del hidden
-        full = (h @ params["lm_head"]).float()        # [B, 1 + TF, V]
-        errs_b = [rel_err(logits, full[:, 0])] + \
-            [rel_err(s, full[:, 1 + i]) for i, s in enumerate(step_logits)]
         prof = profile_call(torch, lambda: model.decode_step(
-            params, toks[:, -1:], cache, SERVE_T + SERVE_TF),
+            params, toks[:, -1:], cache, T + SERVE_TF),
             f"{label} decode step")
+        del cache
+        moe = None
+        if cfg.family == "moe":
+            print(f"  {label} (b) on the no-drop variant: "
+                  f"{no_drop_variant(cfg).moe}")
+            moe = moe_checks(torch, lm_model, model, plain, params, batch,
+                             toks, max_len, logits)
+            err_a, errs_b, finite_b = moe["err_a"], moe["errs_b"], \
+                moe["finite"]
+        else:
+            pairs_b, finite_b = decode_pairs(
+                torch, logits, step_logits,
+                forward_logits(torch, lm_model, model, params, batch, toks))
+            errs_b = [rel_err(g, w) for g, w in pairs_b]
+            del pairs_b
+        err_b = max(errs_b)
     torch.cuda.synchronize()
 
     decode = steady(step_ms)
@@ -1397,20 +1658,24 @@ def run_serve(torch, kernels, configs, lm_model, engine, arch) -> dict:
     busy = None if prof["device_busy_ms"] == 0 else \
         prof["device_busy_ms"] / prof["wall_ms"]
     res = {
-        "arch": arch, "params": n_params, "param_bytes": param_bytes,
+        "arch": arch, "reduced": reduced, "prompt": T, "max_len": max_len,
+        "no_drop_variant": None if moe is None else
+        str(no_drop_variant(cfg).moe),
+        "params": n_params, "param_bytes": param_bytes,
         "init_s": init_s, "prefill_ms": prefill_ms,
         "decode_ms": step_ms, "decode_ms_median": decode["median"],
         "decode_tokens_per_s": SERVE_B / decode["median"] * 1e3,
         "generate_ms": gen_ms,
         "generate_tokens_per_s": SERVE_B * SERVE_NEW / min(gen_ms) * 1e3,
         "peak_bytes": peak, "busy_share": busy, "profile": prof,
-        "err_prefill_vs_plain": err_a, "err_decode_vs_forward": errs_b,
+        "err_prefill_vs_plain": err_a, "err_decode_vs_forward": err_b,
+        "err_by_position": errs_b, "moe_routing": moe,
         "tol": [tol_a, tol_b], "launches": gens[0]["launches"],
         "launches_per_step": per_prefill,
         "prefill_launches": prefill_launches, "step_launches": step_launches,
         "tokens": gens[0]["out"].tokens[0].tolist()}
-    print(f"  {label} prefill ms {prefill_ms:.3f} (B={SERVE_B} x {SERVE_T} "
-          f"tokens: {SERVE_B * SERVE_T / prefill_ms * 1e3:.0f} tokens/s)")
+    print(f"  {label} prefill ms {prefill_ms:.3f} (B={SERVE_B} x {T} "
+          f"tokens: {SERVE_B * T / prefill_ms * 1e3:.0f} tokens/s)")
     print(f"  {label} decode ms per token {decode['median']:.3f} (median of "
           f"{decode['n']} steps after the first {decode['first']:.3f}; max "
           f"{decode['max']:.3f}): {res['decode_tokens_per_s']:.1f} tokens/s "
@@ -1420,15 +1685,24 @@ def run_serve(torch, kernels, configs, lm_model, engine, arch) -> dict:
     print(f"  {label} peak memory {peak / 2 ** 30:.3f} GiB over generate")
     print(f"  {label} decode-step device busy share "
           f"{'not measured' if busy is None else f'{busy:.3f}'}")
-    print(f"  {label} (a) kernel vs plain prefill: {err_a:.4e} of the "
-          f"largest |logit| (tol {tol_a}); (b) prefill and decode steps vs "
-          f"the kernel forward: {[f'{e:.4e}' for e in errs_b]} (tol {tol_b})")
+    routed = "" if moe is None else " (routing replayed)"
+    print(f"  {label} (a) kernel vs plain prefill{routed}: {err_a:.4e} of "
+          f"the largest |logit| (tol {tol_a}); (b) prefill and decode "
+          f"steps vs the kernel forward{routed}: {err_b:.4e} (by position "
+          f"{[f'{e:.4e}' for e in errs_b]}; tol {tol_b})")
+    if moe is not None:
+        print(f"  {label} own routing: (a) {moe['err_a_own_routing']:.4e} "
+              f"with {moe['flips_a']} (layer, token) choices flipped of "
+              f"{cfg.n_layers * SERVE_B * T}; (b) by position "
+              f"{[f'{e:.4e}' for e in moe['errs_b_own_routing']]} with "
+              f"{moe['flips_b']} flipped of {cfg.n_layers * SERVE_B * T} "
+              f"(prefill), {cfg.n_layers * SERVE_B} (each step)")
     print(f"  {label} launches per generate {[r['launches'] for r in gens]}, "
           f"prefill {prefill_launches} (expected {per_prefill}); per "
           f"decode step {step_launches}")
-    finite = all(bool(torch.isfinite(t).all()) for t in
-                 [r["out"].prefill_logits for r in gens] + step_logits +
-                 [logits, plain_logits, full])
+    finite = finite and finite_b and all(
+        bool(torch.isfinite(t).all()) for t in
+        [r["out"].prefill_logits for r in gens] + step_logits)
     same = torch.equal(gens[0]["out"].tokens, gens[1]["out"].tokens) and \
         torch.equal(gens[0]["out"].prefill_logits,
                     gens[1]["out"].prefill_logits)
@@ -1442,8 +1716,8 @@ def run_serve(torch, kernels, configs, lm_model, engine, arch) -> dict:
         fail(f"{label}: tokens {tuple(tokens.shape)} out of shape or range")
     if not err_a <= tol_a:
         fail(f"{label}: (a) kernel prefill {err_a} from the plain one")
-    if not max(errs_b) <= tol_b:
-        fail(f"{label}: (b) decode {max(errs_b)} from the kernel forward")
+    if not err_b <= tol_b:
+        fail(f"{label}: (b) decode {err_b} from the kernel forward")
     if not same:
         fail(f"{label}: two greedy generate runs differ")
     zero = {k: 0 for k in per_prefill}
@@ -1452,6 +1726,7 @@ def run_serve(torch, kernels, configs, lm_model, engine, arch) -> dict:
             any(s != zero for s in step_launches):
         fail(f"{label}: launches differ from {per_prefill} per prefill and "
              f"none per decode step")
+    del params, logits, gens, step_logits, batch, toks
     return res
 
 
@@ -1611,8 +1886,8 @@ def main() -> int:
     serve_runs = {}
     for arch in SERVE_ARCHS:
         print(f"main path: serving {arch} (published config, use_flash, "
-              f"use_gla_kernel), B={SERVE_B}, prompt {SERVE_T}, "
-              f"{SERVE_NEW} greedy new tokens")
+              f"use_gla_kernel; reduced {SERVE_REDUCED.get(arch)}), "
+              f"B={SERVE_B}, {SERVE_NEW} greedy new tokens")
         serve_runs[arch] = run_serve(torch, kernels, configs, lm_model,
                                      engine, arch)
         torch.cuda.empty_cache()

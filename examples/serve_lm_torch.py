@@ -1,10 +1,15 @@
 """Batched serving with the PyTorch port: prefill a prompt batch, decode
 new tokens with the KV cache / recurrent state, report throughput.
-``--arch`` selects any ported architecture's *smoke* config, or with
-``--full`` its published one (seeded random weights either way).
+``--arch`` selects any of the ten architectures' *smoke* config, or with
+``--full`` its published one (seeded random weights either way); an
+encoder-decoder (whisper-base) also gets seeded frame embeddings (the
+stubbed audio frontend's output): 1,500 with ``--full``, its 30 s
+window, else as many as the prompt's tokens.
 
     PYTHONPATH=src python examples/serve_lm_torch.py --arch qwen2.5-3b \\
         --new 32 --device cpu
+    PYTHONPATH=src python examples/serve_lm_torch.py --arch whisper-base \\
+        --device cpu
 
 Without ``--device`` it runs on ``cuda`` and raises when there is none.
 """
@@ -47,6 +52,11 @@ def main(argv=None) -> dict:
         batch["tokens"] = batch["tokens"][:, :T - P]
         batch["embeds"] = torch.randn((B, P, cfg.d_model), generator=gen,
                                       device=device)
+    if cfg.family == "encdec":
+        frames = 1500 if args.full else T
+        batch["frames"] = torch.randn((B, frames, cfg.d_model),
+                                      generator=gen, device=device).to(
+                                          cfg.dtype)
 
     t0 = time.perf_counter()
     out = generate(model, params, batch, max_len=T + args.new,

@@ -36,10 +36,11 @@
 // Dispatch (dispatch): bf16 with dk and dv multiples of 16 (dk <= 128,
 // dv <= 128) and 16-byte aligned q, k, v goes to gla_fwd_bf16<DK, DV>,
 // with DK, DV the widths rounded up to 64 or 128 (zero-padded in shared
-// memory).  That takes every LM config of the port (Mamba2 head_dim 64,
-// d_state 64 or 128).  Any other bf16 shape, and every f32 call, goes to
-// gla_fwd<T, DKP> on the CUDA cores.  The choice is by dtype and shape
-// alone; neither kernel falls back to the other.
+// memory).  That takes every Mamba2 config of the port (head_dim 64,
+// d_state 64 or 128).  Every other shape up to dk = 512, f32 or bf16
+// (xLSTM's mLSTM heads of 256 and 512 among them), goes to gla_fwd<T> on
+// the CUDA cores.  The choice is by dtype and shape alone; no kernel falls
+// back to another.
 //
 // gla_fwd_bf16, the tensor-core kernel.  One block of 4 warps per head
 // holds all of dv, so q and k are read once per head (not once per dv
@@ -120,21 +121,37 @@
 //   K o w in bf16 reaches 1.32 x through the state into later chunks' y;
 //   S_in in bf16 0.96 x.
 //
-// gla_fwd, the CUDA-core kernel (f32, and bf16 shapes the tensor-core
-// kernel does not take).  The f32 TOL of the oracle (1e-4 + 64 ulp) is met
-// by no bf16 or TF32 product (TF32 keeps 11 significant bits), so f32
-// stays in f32 FMAs.  One block of 256 threads per (bh, 64-column slice of
-// dv) walks the chunks in a loop, holding its [dk, 64] slice of S (and the
-// whole n) in shared memory.  Each slice computes n, which depends only on
-// k and a, and slice 0 writes it.  The intra-chunk term is built per
-// (64-row query sub-tile, 64-row key sub-tile at or before it): scores
-// [64, 64] go through shared memory to the P.V product and the W x W
-// matrix is never stored.  The cumsum runs in one warp (a sequential run
-// per lane, then a shuffle scan).  Shared memory per block (f32): state
-// [DKP][64], Q and K sub-tiles [64][DKP + 1], V [64][64], P [64][65], n
-// [DKP], and 2 W floats of cumsum and state weights, with DKP = 64 for
-// dk <= 64 and 128 for dk <= 128: 83,968 B at dk = 64, W = 128, and
-// 134,400 B at dk = 128, W = 256.
+// gla_fwd, the CUDA-core kernel (f32, bf16 shapes the tensor-core kernel
+// does not take, and every dk > 128).  The f32 TOL of the oracle (1e-4 +
+// 64 ulp) is met by no bf16 or TF32 product (TF32 keeps 11 significant
+// bits), so f32 stays in f32 FMAs.  A whole [dk, dv] f32 state is 1 MiB at
+// 512 x 512, and one SM's shared memory is 227 KB, so one block of 256
+// threads owns one (bh, 64-column slice of dv), walks the chunks in a
+// loop and holds its [dk, 64] slice of S (128 KB at dk = 512) and n [dk]
+// in shared memory; each slice computes n, which depends only on k and a,
+// and slice 0 writes it.  q and k are streamed in 64-column pieces of dk,
+// so shared memory grows with dk only through the state slice and n.  The
+// cumsum runs in one warp (a sequential run per lane, then a shuffle
+// scan).  Per chunk:
+//   - the inter-chunk term e^{ca_i} (q_i S_in, q_i n_in) accumulates over
+//     the pieces of Q's 64-row sub-tile;
+//   - the scores Q K^T of each (query sub-tile, key sub-tile at or before
+//     it) accumulate over the pieces of Q and K, then P = scores times
+//     e^{ca_i - ca_j} goes through shared memory to the P V product; the
+//     W x W matrix is never stored;
+//   - the state update runs piece by piece over dk: each 64-row piece of
+//     S_new = e^{tot} S_in + (K o w)^T V is accumulated in registers over
+//     the chunk's key sub-tiles and stored back in place (a thread reads
+//     and writes only its own elements, and every query sub-tile has read
+//     S_in by then).
+// Every product is an f32 FMA on the CUDA cores, for bf16 too, which
+// meets the bf16 TOL with room to spare.  The scores are recomputed by
+// each of the dv / 64 slices of a head, and q and k are read once per
+// slice: at xlstm-350m's prefill (16 heads, dk = dv = 512, W = 256) that
+// is 8 slices, 128 blocks of 256 threads on 132 SMs, one block per SM.
+// Shared memory: [DKP][64] state, Q, K and P [64][65], V [64][64], n
+// [DKP] and 2 W floats, DKP = dk rounded up to 64: 83,968 B at dk = 64,
+// W = 128 and 201,472 B at dk = 512, W = 256.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -162,15 +179,58 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
-template <int DKP>
-int smem_bytes(int W) {
-  const int floats = DKP * kTile + 2 * kTile * (DKP + 1) + kTile * kTile +
-                     kTile * (kTile + 1) + DKP + 2 * W;
-  return floats * static_cast<int>(sizeof(float));
+// Inclusive cumsum of the chunk's a (steps t0 .. t0 + W, zero past n_t)
+// into ca[0 .. W), by the 32 lanes of one warp (lane = tid): a sequential
+// run per lane, then a shuffle scan of the run totals.
+__device__ __forceinline__ void warp_cumsum(const float* ab, float* ca,
+                                            long long t0, int W, int n_t,
+                                            int tid) {
+  const int per = (W + 31) / 32;
+  const int lo = tid * per;
+  float run = 0.0f;
+  for (int i = lo; i < min(lo + per, W); ++i) {
+    run += t0 + i < n_t ? ab[t0 + i] : 0.0f;
+    ca[i] = run;
+  }
+  float incl = run;
+  for (int off = 1; off < 32; off <<= 1) {
+    const float up = __shfl_up_sync(0xffffffffu, incl, off);
+    if (tid >= off) incl += up;
+  }
+  float before = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (tid == 0) before = 0.0f;
+  for (int i = lo; i < min(lo + per, W); ++i) ca[i] += before;
+}
+
+// y of a 64-row query sub-tile (chunk rows i0 + ty + 16 i, columns c0 +
+// tx + 16 j of dv), divided by max(|den|, 1) when normalizing; rows past
+// W or n_t and columns past dv are not written.
+template <typename T>
+__device__ __forceinline__ void store_y(T* yb, const float (&acc)[4][4],
+                                        const float (&den)[4], int i0,
+                                        long long t0, int c0, int W,
+                                        int n_t, int dv, int normalize) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int ri = i0 + ty + 16 * i;
+    const long long t = t0 + ri;
+    if (ri >= W || t >= n_t) continue;
+    const float inv = normalize ? fmaxf(fabsf(den[i]), 1.0f) : 1.0f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = c0 + tx + 16 * j;
+      if (c < dv) {
+        const float val = normalize ? acc[i][j] / inv : acc[i][j];
+        store(yb + t * dv + c, val);
+      }
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
-// CUDA cores: f32, and bf16 shapes the tensor-core kernel does not take.
+// CUDA cores: f32, bf16 shapes the tensor-core kernel does not take, and
+// dk > 128; q and k streamed in 64-column pieces of dk.
 // ---------------------------------------------------------------------------
 
 // Loads rows [row0, row0 + 64) of a [T, width] matrix (chunk-relative row
@@ -189,23 +249,33 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
   }
 }
 
-template <typename T, int DKP>
+constexpr int kMaxDk = 512;
+
+int smem_bytes(int dk, int W) {
+  const int dkp = (dk + kTile - 1) / kTile * kTile;
+  const int floats = dkp * kTile + 3 * kTile * (kTile + 1) + kTile * kTile +
+                     dkp + 2 * W;
+  return floats * static_cast<int>(sizeof(float));
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 gla_fwd(const T* __restrict__ q, const T* __restrict__ k,
         const T* __restrict__ v, const float* __restrict__ a,
         T* __restrict__ y, float* __restrict__ S_out,
         float* __restrict__ n_out, int n_t, int dk, int dv, int W,
         int n_slices, int normalize) {
-  constexpr int KP = DKP + 1;
-  constexpr int NI = DKP / 16;          // state rows per thread
+  constexpr int KP = kTile + 1;
+  const int n_pc = (dk + kTile - 1) / kTile;   // 64-column pieces of dk
+  const int dkp = n_pc * kTile;
   extern __shared__ float smem[];
-  float* Ss = smem;                     // [DKP][kTile] state slice
-  float* Qs = Ss + DKP * kTile;         // [kTile][KP]
-  float* Ks = Qs + kTile * KP;          // [kTile][KP]
+  float* Ss = smem;                     // [dkp][kTile] state slice
+  float* Qs = Ss + dkp * kTile;         // [kTile][KP] piece of Q
+  float* Ks = Qs + kTile * KP;          // [kTile][KP] piece of K
   float* Vs = Ks + kTile * KP;          // [kTile][kTile]
-  float* Ps = Vs + kTile * kTile;       // [kTile][kTile + 1]
-  float* ns = Ps + kTile * (kTile + 1); // [DKP]
-  float* ca = ns + DKP;                 // [W]
+  float* Ps = Vs + kTile * kTile;       // [kTile][KP]
+  float* ns = Ps + kTile * KP;          // [dkp]
+  float* ca = ns + dkp;                 // [W]
   float* wf = ca + W;                   // [W] e^{tot - ca_j}
 
   const int bh = blockIdx.x / n_slices;
@@ -220,60 +290,50 @@ gla_fwd(const T* __restrict__ q, const T* __restrict__ k,
   const float* ab = a + static_cast<long long>(bh) * n_t;
   T* yb = y + static_cast<long long>(bh) * n_t * dv;
 
-  for (int e = tid; e < DKP * kTile; e += kThreads) Ss[e] = 0.0f;
-  for (int e = tid; e < DKP; e += kThreads) ns[e] = 0.0f;
+  for (int e = tid; e < dkp * kTile; e += kThreads) Ss[e] = 0.0f;
+  for (int e = tid; e < dkp; e += kThreads) ns[e] = 0.0f;
 
   const int n_chunks = (n_t + W - 1) / W;
   const int n_sub = (W + kTile - 1) / kTile;
   for (int chunk = 0; chunk < n_chunks; ++chunk) {
     const long long t0 = static_cast<long long>(chunk) * W;
     __syncthreads();  // the previous chunk's state update is stored
-    if (tid < 32) {   // inclusive cumsum of a over the chunk, in one warp
-      const int per = (W + 31) / 32;
-      const int lo = tid * per;
-      float run = 0.0f;
-      for (int i = lo; i < min(lo + per, W); ++i) {
-        run += t0 + i < n_t ? ab[t0 + i] : 0.0f;
-        ca[i] = run;
-      }
-      float incl = run;
-      for (int off = 1; off < 32; off <<= 1) {
-        const float up = __shfl_up_sync(0xffffffffu, incl, off);
-        if (tid >= off) incl += up;
-      }
-      float before = __shfl_up_sync(0xffffffffu, incl, 1);
-      if (tid == 0) before = 0.0f;
-      for (int i = lo; i < min(lo + per, W); ++i) ca[i] += before;
-    }
+    if (tid < 32) warp_cumsum(ab, ca, t0, W, n_t, tid);
     __syncthreads();
     const float tot = ca[W - 1];
 
     // ---- outputs, one 64-row query sub-tile at a time -------------------
     for (int qs = 0; qs < n_sub; ++qs) {
       const int i0 = qs * kTile;
-      __syncthreads();  // Qs, Ks, Vs, Ps of the previous sub-tile consumed
-      load_tile(Qs, KP, qb, dk, 0, dk, t0, i0, W, n_t);
-      __syncthreads();
       float acc[4][4], den[4];
-      // inter-chunk term: e^{ca_i} q_i S_in (and q_i n_in)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         den[i] = 0.0f;
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
       }
-      for (int d = 0; d < dk; ++d) {
-        float qv[4], sv[4];
+      // inter-chunk term: q_i S_in and q_i n_in over the pieces of dk
+      for (int pc = 0; pc < n_pc; ++pc) {
+        __syncthreads();  // Qs of the previous piece consumed
+        load_tile(Qs, KP, qb, dk, pc * kTile, kTile, t0, i0, W, n_t);
+        __syncthreads();
+        const float* Sp = Ss + pc * kTile * kTile;
+        const float* np = ns + pc * kTile;
+#pragma unroll 4
+        for (int d = 0; d < kTile; ++d) {
+          float qv[4], sv[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * KP + d];
+          for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * KP + d];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) sv[j] = Ss[d * kTile + tx + 16 * j];
-        const float nv = ns[d];
+          for (int j = 0; j < 4; ++j) sv[j] = Sp[d * kTile + tx + 16 * j];
+          const float nv = np[d];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          den[i] = fmaf(qv[i], nv, den[i]);
+          for (int i = 0; i < 4; ++i) {
+            den[i] = fmaf(qv[i], nv, den[i]);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(qv[i], sv[j], acc[i][j]);
+            for (int j = 0; j < 4; ++j)
+              acc[i][j] = fmaf(qv[i], sv[j], acc[i][j]);
+          }
         }
       }
 #pragma unroll
@@ -287,25 +347,32 @@ gla_fwd(const T* __restrict__ q, const T* __restrict__ k,
       // intra-chunk term over key sub-tiles at or before this one
       for (int ks = 0; ks <= qs; ++ks) {
         const int j0 = ks * kTile;
-        __syncthreads();
-        load_tile(Ks, KP, kb, dk, 0, dk, t0, j0, W, n_t);
-        load_tile(Vs, kTile, vb, dv, c0, kTile, t0, j0, W, n_t);
-        __syncthreads();
         float sc[4][4];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
           for (int j = 0; j < 4; ++j) sc[i][j] = 0.0f;
-        for (int d = 0; d < dk; ++d) {
-          float qv[4], kv[4];
+        for (int pc = 0; pc < n_pc; ++pc) {
+          __syncthreads();  // Qs, Ks (and Vs, Ps) of the last step consumed
+          // with one piece, Qs still holds it from the inter-chunk term
+          if (n_pc > 1)
+            load_tile(Qs, KP, qb, dk, pc * kTile, kTile, t0, i0, W, n_t);
+          load_tile(Ks, KP, kb, dk, pc * kTile, kTile, t0, j0, W, n_t);
+          if (pc == 0) load_tile(Vs, kTile, vb, dv, c0, kTile, t0, j0, W, n_t);
+          __syncthreads();
+#pragma unroll 4
+          for (int d = 0; d < kTile; ++d) {
+            float qv[4], kv[4];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * KP + d];
+            for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty + 16 * i) * KP + d];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * KP + d];
+            for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * KP + d];
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
+            for (int i = 0; i < 4; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
+              for (int j = 0; j < 4; ++j)
+                sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
+          }
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
@@ -316,7 +383,7 @@ gla_fwd(const T* __restrict__ q, const T* __restrict__ k,
             const int cj = j0 + tx + 16 * j;
             const float s = (cj <= ri && ri < W)
                 ? sc[i][j] * expf(ca[ri] - ca[cj]) : 0.0f;
-            Ps[(ty + 16 * i) * (kTile + 1) + tx + 16 * j] = s;
+            Ps[(ty + 16 * i) * KP + tx + 16 * j] = s;
             rs += s;
           }
           if (normalize) den[i] += half_warp_sum(rs);
@@ -326,70 +393,61 @@ gla_fwd(const T* __restrict__ q, const T* __restrict__ k,
         for (int kk = 0; kk < kTile; ++kk) {
           float pv[4], vv[4];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * (kTile + 1) + kk];
+          for (int i = 0; i < 4; ++i) pv[i] = Ps[(ty + 16 * i) * KP + kk];
 #pragma unroll
           for (int j = 0; j < 4; ++j) vv[j] = Vs[kk * kTile + tx + 16 * j];
 #pragma unroll
           for (int i = 0; i < 4; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+            for (int j = 0; j < 4; ++j)
+              acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
         }
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int ri = i0 + ty + 16 * i;
-        const long long t = t0 + ri;
-        if (ri >= W || t >= n_t) continue;
-        const float inv = normalize ? fmaxf(fabsf(den[i]), 1.0f) : 1.0f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = c0 + tx + 16 * j;
-          if (c < dv) {
-            const float val = normalize ? acc[i][j] / inv : acc[i][j];
-            store(yb + t * dv + c, val);
-          }
-        }
-      }
+      store_y(yb, acc, den, i0, t0, c0, W, n_t, dv, normalize);
     }
 
-    // ---- state update ----------------------------------------------------
+    // ---- state update, one 64-row piece of dk at a time -------------------
     for (int i = tid; i < W; i += kThreads) wf[i] = expf(tot - ca[i]);
     const float gt = expf(tot);
-    float snew[NI][4];
+    for (int pc = 0; pc < n_pc; ++pc) {
+      float* Sp = Ss + pc * kTile * kTile;
+      float snew[4][4];
 #pragma unroll
-    for (int ii = 0; ii < NI; ++ii)
+      for (int ii = 0; ii < 4; ++ii)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        snew[ii][j] = gt * Ss[(ty + 16 * ii) * kTile + tx + 16 * j];
-    float nnew = tid < DKP ? gt * ns[tid] : 0.0f;
-    for (int ks = 0; ks < n_sub; ++ks) {
-      const int j0 = ks * kTile;
-      __syncthreads();
-      load_tile(Ks, KP, kb, dk, 0, dk, t0, j0, W, n_t);
-      load_tile(Vs, kTile, vb, dv, c0, kTile, t0, j0, W, n_t);
-      __syncthreads();
-      const int rows = min(kTile, W - j0);
-      for (int kk = 0; kk < rows; ++kk) {
-        const float w = wf[j0 + kk];
-        float vv[4];
+        for (int j = 0; j < 4; ++j)
+          snew[ii][j] = gt * Sp[(ty + 16 * ii) * kTile + tx + 16 * j];
+      float nnew = tid < kTile ? gt * ns[pc * kTile + tid] : 0.0f;
+      for (int ks = 0; ks < n_sub; ++ks) {
+        const int j0 = ks * kTile;
+        __syncthreads();  // Ks, Vs (and wf, on the first pass) ready to reuse
+        load_tile(Ks, KP, kb, dk, pc * kTile, kTile, t0, j0, W, n_t);
+        load_tile(Vs, kTile, vb, dv, c0, kTile, t0, j0, W, n_t);
+        __syncthreads();
+        const int rows = min(kTile, W - j0);
+        for (int kk = 0; kk < rows; ++kk) {
+          const float w = wf[j0 + kk];
+          float vv[4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) vv[j] = Vs[kk * kTile + tx + 16 * j];
+          for (int j = 0; j < 4; ++j) vv[j] = Vs[kk * kTile + tx + 16 * j];
 #pragma unroll
-        for (int ii = 0; ii < NI; ++ii) {
-          const float kd = Ks[kk * KP + ty + 16 * ii] * w;
+          for (int ii = 0; ii < 4; ++ii) {
+            const float kd = Ks[kk * KP + ty + 16 * ii] * w;
 #pragma unroll
-          for (int j = 0; j < 4; ++j) snew[ii][j] = fmaf(kd, vv[j], snew[ii][j]);
+            for (int j = 0; j < 4; ++j)
+              snew[ii][j] = fmaf(kd, vv[j], snew[ii][j]);
+          }
+          if (tid < kTile) nnew = fmaf(Ks[kk * KP + tid], w, nnew);
         }
-        if (tid < DKP) nnew = fmaf(Ks[kk * KP + tid], w, nnew);
       }
+      // a thread rewrites only the elements it read above
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          Sp[(ty + 16 * ii) * kTile + tx + 16 * j] = snew[ii][j];
+      if (tid < kTile) ns[pc * kTile + tid] = nnew;
     }
-    __syncthreads();
-#pragma unroll
-    for (int ii = 0; ii < NI; ++ii)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        Ss[(ty + 16 * ii) * kTile + tx + 16 * j] = snew[ii][j];
-    if (tid < DKP) ns[tid] = nnew;
   }
   __syncthreads();
 
@@ -908,38 +966,26 @@ gla_fwd_bf16(const __nv_bfloat16* __restrict__ q,
 // Launch.
 // ---------------------------------------------------------------------------
 
-template <typename T, int DKP>
+template <typename T>
 int launch(const void* q, const void* k, const void* v, const float* a,
            void* y, float* S, float* n, int bh, int n_t, int dk, int dv,
            int W, int normalize, cudaStream_t st) {
-  const int bytes = smem_bytes<DKP>(W);
-  static bool configured = false;  // once, for the largest chunk taken
-  if (!configured) {
+  const int bytes = smem_bytes(dk, W);
+  static int configured = 0;  // the largest dynamic shared memory set so far
+  if (bytes > configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        gla_fwd<T, DKP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes<DKP>(kMaxChunk));
+        gla_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return int(err);
-    configured = true;
+    configured = bytes;
   }
   const int n_slices = (dv + kTile - 1) / kTile;
   const long long blocks = static_cast<long long>(bh) * n_slices;
   if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidValue);
-  gla_fwd<T, DKP><<<static_cast<unsigned>(blocks), kThreads, bytes, st>>>(
+  gla_fwd<T><<<static_cast<unsigned>(blocks), kThreads, bytes, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), a, static_cast<T*>(y), S, n, n_t, dk, dv, W,
       n_slices, normalize);
   return int(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch_dk(const void* q, const void* k, const void* v, const float* a,
-                void* y, float* S, float* n, int bh, int n_t, int dk, int dv,
-                int W, int normalize, cudaStream_t st) {
-  if (dk <= 64)
-    return launch<T, 64>(q, k, v, a, y, S, n, bh, n_t, dk, dv, W, normalize,
-                         st);
-  return launch<T, 128>(q, k, v, a, y, S, n, bh, n_t, dk, dv, W, normalize,
-                        st);
 }
 
 template <int DK, int DV>
@@ -965,7 +1011,7 @@ int launch_tc(const void* q, const void* k, const void* v, const float* a,
 
 // bf16 with dk, dv multiples of 16 up to 128 and 16-byte aligned q, k, v
 // (cp.async) take the tensor cores at widths rounded up to 64 or 128;
-// everything else takes the CUDA cores.
+// everything else takes gla_fwd on the CUDA cores.
 int dispatch(const void* q, const void* k, const void* v, const float* a,
              void* y, float* S, float* n, int is_bf16, int bh, int n_t,
              int dk, int dv, int W, int normalize, cudaStream_t st) {
@@ -973,7 +1019,7 @@ int dispatch(const void* q, const void* k, const void* v, const float* a,
       ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
         reinterpret_cast<uintptr_t>(v)) & 15) == 0 &&
       (reinterpret_cast<uintptr_t>(y) & 3) == 0;
-  if (is_bf16 && aligned && dk % 16 == 0 && dv % 16 == 0 && dv <= 128) {
+  if (is_bf16 && aligned && dk <= 128 && dk % 16 == 0 && dv % 16 == 0 && dv <= 128) {
     if (dk <= 64 && dv <= 64)
       return launch_tc<64, 64>(q, k, v, a, y, S, n, bh, n_t, dk, dv, W,
                                normalize, st);
@@ -987,25 +1033,25 @@ int dispatch(const void* q, const void* k, const void* v, const float* a,
                                normalize, st);
   }
   if (is_bf16)
-    return dispatch_dk<__nv_bfloat16>(q, k, v, a, y, S, n, bh, n_t, dk, dv,
-                                      W, normalize, st);
-  return dispatch_dk<float>(q, k, v, a, y, S, n, bh, n_t, dk, dv, W,
-                            normalize, st);
+    return launch<__nv_bfloat16>(q, k, v, a, y, S, n, bh, n_t, dk, dv, W,
+                                 normalize, st);
+  return launch<float>(q, k, v, a, y, S, n, bh, n_t, dk, dv, W, normalize,
+                       st);
 }
 
 }  // namespace
 
 // q, k: [bh, n_t, dk]; v: [bh, n_t, dv], all f32 (is_bf16 = 0) or all bf16
 // (is_bf16 = 1); a: [bh, n_t] f32 log-decays; all contiguous.  y: [bh, n_t,
-// dv] in v's dtype; S: [bh, dk, dv] f32; n: [bh, dk] f32.  1 <= dk <= 128,
+// dv] in v's dtype; S: [bh, dk, dv] f32; n: [bh, dk] f32.  1 <= dk <= 512,
 // 1 <= W <= 4096 (the chunk).  Launches on `stream` and returns
 // cudaGetLastError() (0 on success); it does not synchronise.
 extern "C" int gla_scan_fwd(const void* q, const void* k, const void* v,
                             const float* a, void* y, float* S, float* n,
                             int is_bf16, int bh, int n_t, int dk, int dv,
                             int W, int normalize, void* stream) {
-  if (bh <= 0 || n_t <= 0 || dk <= 0 || dk > 128 || dv <= 0 || W <= 0 ||
-      W > kMaxChunk)
+  if (bh <= 0 || n_t <= 0 || dk <= 0 || dk > kMaxDk || dv <= 0 ||
+      W <= 0 || W > kMaxChunk)
     return int(cudaErrorInvalidValue);
   return dispatch(q, k, v, a, y, S, n, is_bf16, bh, n_t, dk, dv, W,
                   normalize, static_cast<cudaStream_t>(stream));

@@ -4,8 +4,8 @@ The port of :mod:`repro.models.lm.attention`: ``init_attention``,
 ``_project_qkv``, the quadratic reference ``mha`` (the oracle of the
 flash kernel) with its memory-bounded blocked form, ``self_attention``,
 whose ``use_flash`` switch routes onto the CUDA flash-attention kernel,
-and the serving path's ``decode_self_attention``.  ``cross_attention``
-comes with the encdec family.
+the encdec family's ``cross_attention`` (plain, as in the reference) and
+the serving path's ``decode_self_attention``.
 """
 from __future__ import annotations
 
@@ -117,6 +117,16 @@ def self_attention(p: Params, x: torch.Tensor, *, n_heads: int,
         out = kops.flash_attention(q, k, v, causal=causal, window=window)
     else:
         out = mha(q, k, v, causal=causal, window=window, block_q=block_q)
+    return out.reshape(B, T, n_heads * head_dim) @ p["wo"]
+
+
+def cross_attention(p: Params, x: torch.Tensor, enc_out: torch.Tensor, *,
+                    n_heads: int, n_kv_heads: int, head_dim: int,
+                    block_q: int = 0) -> torch.Tensor:
+    """Decoder queries over encoder keys: the plain ``mha``, non-causal."""
+    B, T, _ = x.shape
+    q, k, v = _project_qkv(p, x, enc_out, n_heads, n_kv_heads, head_dim)
+    out = mha(q, k, v, causal=False, block_q=block_q)
     return out.reshape(B, T, n_heads * head_dim) @ p["wo"]
 
 

@@ -11,6 +11,7 @@ from __future__ import annotations
 import math
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -69,6 +70,35 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(length: int, dim: int, device=None
+                         ) -> torch.Tensor:
+    """Whisper-style sinusoidal embeddings ``[length, dim]`` (f32): the
+    table is built in numpy f64 and cast to f32, as the reference builds
+    it."""
+    pos = np.arange(length)[:, None]
+    inv = np.exp(-np.log(10000.0) * np.arange(0, dim, 2) / dim)[None, :]
+    emb = np.zeros((length, dim), np.float32)
+    emb[:, 0::2] = np.sin(pos * inv)
+    emb[:, 1::2] = np.cos(pos * inv)
+    return torch.from_numpy(emb).to(device)
+
+
+def sinusoidal_position_at(pos: int, dim: int, device=None) -> torch.Tensor:
+    """Single-position sinusoidal embedding ``[dim]``, computed in f32 as
+    the reference's decode computes it (it differs from the f64 table in
+    the last bits).  The divisor is a tensor on ``device``: CUDA turns a
+    division by a host scalar into a multiply by its reciprocal."""
+    f32 = dict(dtype=torch.float32, device=device)
+    inv = torch.exp(-torch.log(torch.full((), 10000.0, **f32))
+                    * torch.arange(0, dim, 2, **f32)
+                    / torch.full((), dim, **f32))
+    ang = torch.full((), pos, **f32) * inv
+    emb = torch.zeros((dim,), **f32)
+    emb[0::2] = torch.sin(ang)
+    emb[1::2] = torch.cos(ang)
+    return emb
 
 
 # ---------------------------------------------------------------------------

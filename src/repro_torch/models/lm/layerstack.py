@@ -58,8 +58,9 @@ def _block_plan(cfg: LMConfig) -> List[_BlockSpec]:
     """The linear cut-point chain of one LM config."""
     if cfg.family in LATER_FAMILIES:
         raise NotImplementedError(
-            f"the {cfg.family} family is not ported to repro_torch yet "
-            f"(ROADMAP.md, 'Modules to port': the MoE and xlstm families)")
+            f"the {cfg.family} family has no LayerStack adapter yet "
+            f"for training on the hierarchy (ROADMAP.md, queue 1 item 10: "
+            f"training for the MoE, xlstm and encdec families)")
     if cfg.family not in SUPPORTED_FAMILIES:
         raise ValueError(
             f"family {cfg.family!r} has no LayerStack adapter "

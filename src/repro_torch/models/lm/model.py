@@ -1,9 +1,10 @@
-"""LM model zoo: one config dataclass, one builder, two families.
+"""LM model zoo: one config dataclass, one builder, five families.
 
-The port of :mod:`repro.models.lm.model` for the ``dense`` and ``zamba``
-families: ``LMConfig`` (``dtype`` is a ``torch.dtype``), the norm and MLP
-dispatch, the transformer block, and ``build_model``, whose ``Model``
-exposes, as the reference's does::
+The port of :mod:`repro.models.lm.model`: ``LMConfig`` (``dtype`` is a
+``torch.dtype``), the norm and MLP dispatch, the transformer block (its
+MLP a routed MoE in the ``moe`` family), and ``build_model`` for the
+``dense``, ``moe``, ``zamba``, ``xlstm`` and ``encdec`` families, whose
+``Model`` exposes, as the reference's does::
 
     init(generator, device)                  -> params
     hidden_fn(params, batch)                 -> [B, T, D]
@@ -11,37 +12,41 @@ exposes, as the reference's does::
     prefill(params, batch, max_len)          -> (last_logits, cache)
     decode_step(params, tok, cache, pos)     -> (logits, cache)
     init_cache(batch, max_len, device)       -> cache
+                                                (encdec: batch, max_len,
+                                                 enc_len, device)
 
 Params keep the reference's stacked layout (``[L, ...]`` leaves under
-``layers`` or ``mamba``), so a tree converts leaf by leaf
+``layers``, ``mamba``, ``mlstm``/``slstm`` or ``enc_layers``/
+``dec_layers``), so a tree converts leaf by leaf
 (:func:`repro_torch.convert.model_params_from_numpy`); where the
 reference scans over the stacked axis, the port loops over layers and
 indexes each leaf.  The cache is allocated at ``max_len`` by ``prefill``
 and ``decode_step`` writes each new row into it in place: the returned
-cache is the one passed in, equal to the reference's new one.  The
-``moe``, ``xlstm`` and ``encdec`` families raise ``NotImplementedError``
-(ROADMAP.md, queue 1 item 6); their sub-configs are held here only as
-opaque values.
+cache is the one passed in, equal to the reference's new one.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.lm import attention as attn
+from repro_torch.models.lm import moe as moe_mod
 from repro_torch.models.lm import ssm as ssm_mod
+from repro_torch.models.lm import xlstm as xlstm_mod
 from repro_torch.models.lm.common import (Params, apply_geglu,
                                           apply_gelu_mlp, apply_rope,
                                           apply_swiglu, chunked_softmax_xent,
                                           init_gelu_mlp, init_swiglu,
                                           layer_norm, rms_norm,
+                                          sinusoidal_position_at,
+                                          sinusoidal_positions,
                                           truncated_normal_init)
+from repro_torch.models.lm.moe import MoEConfig
 from repro_torch.models.lm.ssm import SSMConfig
-
-LATER_FAMILIES = ("moe", "xlstm", "encdec")
+from repro_torch.models.lm.xlstm import XLSTMConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,9 +64,9 @@ class LMConfig:
     rope_theta: float = 1e4
     sliding_window: int = 0         # local attention width (0 = full)
     global_every: int = 0           # gemma3: every k-th layer is global
-    moe: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
-    xlstm: Optional[Any] = None
+    xlstm: Optional[XLSTMConfig] = None
     shared_attn_every: int = 0      # zamba
     encoder_layers: int = 0
     n_frontend_tokens: int = 0      # stub prefix length (frames / patches)
@@ -120,20 +125,34 @@ def _apply_mlp(cfg: LMConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     return apply_swiglu(p, x)
 
 
+def _apply_ffn(cfg: LMConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """The block's feed-forward: the routed MoE in the ``moe`` family,
+    the MLP elsewhere."""
+    if cfg.family == "moe":
+        return moe_mod.apply_moe(p["moe"], x, cfg.moe)
+    return _apply_mlp(cfg, p["mlp"], x)
+
+
 # ---------------------------------------------------------------------------
-# transformer block (dense family; also zamba's attention block)
+# transformer block (dense / moe families; also zamba's shared block and
+# whisper's encoder)
 # ---------------------------------------------------------------------------
 
 def _init_block(generator: torch.Generator, cfg: LMConfig, device=None
                 ) -> Params:
-    return {
+    p = {
         "ln1": _init_norm(cfg, device),
         "attn": attn.init_attention(generator, cfg.d_model, cfg.n_heads,
                                     cfg.n_kv_heads, cfg.hd, cfg.dtype,
                                     cfg.qkv_bias, device=device),
         "ln2": _init_norm(cfg, device),
-        "mlp": _init_mlp(generator, cfg, device),
     }
+    if cfg.family == "moe":
+        p["moe"] = moe_mod.init_moe(generator, cfg.d_model, cfg.moe,
+                                    cfg.dtype, device)
+    else:
+        p["mlp"] = _init_mlp(generator, cfg, device)
+    return p
 
 
 def _apply_block(cfg: LMConfig, p: Params, x: torch.Tensor, window: int,
@@ -147,7 +166,7 @@ def _apply_block(cfg: LMConfig, p: Params, x: torch.Tensor, window: int,
         block_q=cfg.attn_block_q)
     x = x + h
     h = _apply_norm(cfg, p["ln2"], x)
-    return x + _apply_mlp(cfg, p["mlp"], h)
+    return x + _apply_ffn(cfg, p, h)
 
 
 def _group_layout(cfg: LMConfig) -> Tuple[int, int, int]:
@@ -181,7 +200,7 @@ def _prefill_block(cfg: LMConfig, p: Params, x: torch.Tensor, cache: Params,
         o = attn.mha(q, k, v, causal=True, window=window,
                      block_q=cfg.attn_block_q)
     x = x + o.reshape(B, T, -1) @ p["attn"]["wo"]
-    h = _apply_mlp(cfg, p["mlp"], _apply_norm(cfg, p["ln2"], x))
+    h = _apply_ffn(cfg, p, _apply_norm(cfg, p["ln2"], x))
     cache["k"][:, :T] = k.to(cache["k"].dtype)
     cache["v"][:, :T] = v.to(cache["v"].dtype)
     return x + h, cache
@@ -195,7 +214,7 @@ def _decode_block(cfg: LMConfig, p: Params, x: torch.Tensor, cache: Params,
         n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
         rope_theta=cfg.rope_theta, window=window)
     x = x + h
-    h = _apply_mlp(cfg, p["mlp"], _apply_norm(cfg, p["ln2"], x))
+    h = _apply_ffn(cfg, p, _apply_norm(cfg, p["ln2"], x))
     return x + h, {"k": ck, "v": cv}
 
 
@@ -303,15 +322,14 @@ class Model:
 
 
 def build_model(cfg: LMConfig) -> Model:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return _build_decoder(cfg)
     if cfg.family == "zamba":
         return _build_zamba(cfg)
-    if cfg.family in LATER_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family} family is not ported to repro_torch yet "
-            f"(ROADMAP.md, queue 1 item 6: the MoE, xlstm and encdec "
-            f"families)")
+    if cfg.family == "xlstm":
+        return _build_xlstm(cfg)
+    if cfg.family == "encdec":
+        return _build_encdec(cfg)
     raise ValueError(f"unknown family {cfg.family}")
 
 
@@ -360,7 +378,7 @@ def _last_logits(cfg: LMConfig, params: Params, x: torch.Tensor
     return (x @ params["lm_head"]).float()[:, 0]
 
 
-# --- dense decoder -----------------------------------------------------------
+# --- dense / moe decoder -----------------------------------------------------
 
 def _build_decoder(cfg: LMConfig) -> Model:
     def init(generator: torch.Generator, device=None) -> Params:
@@ -510,6 +528,259 @@ def _build_zamba(cfg: LMConfig) -> Model:
                  init_cache)
 
 
+# --- xlstm -------------------------------------------------------------------
+
+def _build_xlstm(cfg: LMConfig) -> Model:
+    if cfg.xlstm is None:
+        raise ValueError("an xlstm config needs xlstm")
+    xc = cfg.xlstm
+    g = xc.slstm_every
+    if g > 0:
+        if cfg.n_layers % g:
+            raise ValueError("n_layers must divide slstm_every")
+        ng = cfg.n_layers // g      # groups of (g-1) mLSTM + 1 sLSTM
+        n_m = g - 1
+    else:
+        ng, n_m = 0, 0
+    n_mlstm = ng * n_m if ng else cfg.n_layers
+
+    def order():
+        """("m", param index, cache row) and ("s", group, group) in the
+        reference's order: each group's ``g - 1`` mLSTM blocks then its
+        sLSTM block.  mLSTM params are ``[ng, g-1, ...]`` (``[L, ...]``
+        without sLSTM blocks), their cache rows ``[ng * (g-1), ...]``."""
+        if not ng:
+            yield from (("m", i, i) for i in range(cfg.n_layers))
+            return
+        for gi in range(ng):
+            yield from (("m", (gi, j), gi * n_m + j) for j in range(n_m))
+            yield "s", gi, gi
+
+    def init(generator: torch.Generator, device=None) -> Params:
+        dev = generator.device if device is None else torch.device(device)
+        p = _init_head(generator, cfg, dev)
+        mlstm = _stacked(n_mlstm, lambda: {
+            "pre": _init_norm(cfg, dev),
+            "m": xlstm_mod.init_mlstm(generator, cfg.d_model, xc, cfg.dtype,
+                                      dev)})
+        if not ng:
+            p["mlstm"] = mlstm
+            return p
+        p["mlstm"] = _map(lambda a: a.reshape((ng, n_m) + tuple(a.shape[1:])),
+                          mlstm)
+        p["slstm"] = _stacked(ng, lambda: {
+            "pre": _init_norm(cfg, dev),
+            "s": xlstm_mod.init_slstm(generator, cfg.d_model, xc, cfg.dtype,
+                                      dev)})
+        return p
+
+    def hidden_fn(params: Params, batch: Dict[str, torch.Tensor]
+                  ) -> torch.Tensor:
+        x = _embed_tokens(params, batch["tokens"])
+        m = _maybe_remat(cfg, lambda x, lp: x + xlstm_mod.apply_mlstm(
+            lp["m"], _apply_norm(cfg, lp["pre"], x), xc,
+            use_kernel=cfg.use_gla_kernel))
+        s = _maybe_remat(cfg, lambda x, lp: x + xlstm_mod.apply_slstm(
+            lp["s"], _apply_norm(cfg, lp["pre"], x), xc))
+        for kind, i, _ in order():
+            if kind == "m":
+                x = m(x, _index(params["mlstm"], i))
+            else:
+                x = s(x, _index(params["slstm"], i))
+        return x
+
+    def loss_fn(params, batch):
+        return _loss_from_hidden(cfg, params, hidden_fn(params, batch),
+                                 batch)
+
+    def init_cache(batch: int, max_len: int = 0, device=None) -> Params:
+        mc = xlstm_mod.init_mlstm_cache(batch, cfg.d_model, xc, cfg.dtype,
+                                        device)
+        cache = {"mlstm": _map(
+            lambda a: a.new_zeros((n_mlstm,) + tuple(a.shape)), mc)}
+        if ng:
+            sc = xlstm_mod.init_slstm_cache(batch, cfg.d_model, xc, device)
+            cache["slstm"] = _map(
+                lambda a: a.new_zeros((ng,) + tuple(a.shape)), sc)
+        return cache
+
+    def prefill(params: Params, batch: Dict[str, torch.Tensor], max_len: int
+                ) -> Tuple[torch.Tensor, Params]:
+        x = _embed_tokens(params, batch["tokens"])
+        cache = init_cache(x.shape[0], max_len, x.device)
+        for kind, i, row in order():
+            if kind == "m":
+                lp = _index(params["mlstm"], i)
+                y, c = xlstm_mod.prefill_mlstm(
+                    lp["m"], _apply_norm(cfg, lp["pre"], x), xc,
+                    use_kernel=cfg.use_gla_kernel)
+                _write(_index(cache["mlstm"], row), c)
+            else:
+                lp = _index(params["slstm"], i)
+                y, c = xlstm_mod.prefill_slstm(
+                    lp["s"], _apply_norm(cfg, lp["pre"], x), xc)
+                _write(_index(cache["slstm"], row), c)
+            x = x + y
+        return _last_logits(cfg, params, x), cache
+
+    def decode_step(params: Params, tok: torch.Tensor, cache: Params,
+                    pos: int) -> Tuple[torch.Tensor, Params]:
+        x = _embed_tokens(params, tok)
+        for kind, i, row in order():
+            if kind == "m":
+                lp = _index(params["mlstm"], i)
+                lc = _index(cache["mlstm"], row)
+                y, nc = xlstm_mod.decode_mlstm(
+                    lp["m"], _apply_norm(cfg, lp["pre"], x), lc, xc)
+            else:
+                lp = _index(params["slstm"], i)
+                lc = _index(cache["slstm"], row)
+                y, nc = xlstm_mod.decode_slstm(
+                    lp["s"], _apply_norm(cfg, lp["pre"], x), lc, xc)
+            _write(lc, nc)
+            x = x + y
+        return _last_logits(cfg, params, x), cache
+
+    return Model(cfg, init, hidden_fn, loss_fn, prefill, decode_step,
+                 init_cache)
+
+
+# --- encdec (whisper) --------------------------------------------------------
+
+def _build_encdec(cfg: LMConfig) -> Model:
+    if cfg.encoder_layers <= 0:
+        raise ValueError("an encdec config needs encoder_layers > 0")
+    heads = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                 head_dim=cfg.hd)
+
+    def init_dec_block(generator: torch.Generator, device) -> Params:
+        def attention():
+            return attn.init_attention(generator, cfg.d_model, cfg.n_heads,
+                                       cfg.n_kv_heads, cfg.hd, cfg.dtype,
+                                       device=device)
+        return {"ln1": _init_norm(cfg, device), "attn": attention(),
+                "lnx": _init_norm(cfg, device), "xattn": attention(),
+                "ln2": _init_norm(cfg, device),
+                "mlp": _init_mlp(generator, cfg, device)}
+
+    def init(generator: torch.Generator, device=None) -> Params:
+        dev = generator.device if device is None else torch.device(device)
+        p = _init_head(generator, cfg, dev)
+        p["enc_layers"] = _stacked(cfg.encoder_layers,
+                                   lambda: _init_block(generator, cfg, dev))
+        p["enc_norm"] = _init_norm(cfg, dev)
+        p["dec_layers"] = _stacked(cfg.n_layers,
+                                   lambda: init_dec_block(generator, dev))
+        return p
+
+    def encode(params: Params, frames: torch.Tensor) -> torch.Tensor:
+        """frames: [B, T_enc, D] precomputed embeddings (conv-frontend
+        stub)."""
+        T = frames.shape[1]
+        x = frames.to(cfg.dtype) + sinusoidal_positions(
+            T, cfg.d_model, frames.device).to(cfg.dtype)[None]
+        block = _maybe_remat(cfg, lambda x, lp: _apply_block(
+            cfg, lp, x, 0, causal=False))
+        for i in range(cfg.encoder_layers):
+            x = block(x, _index(params["enc_layers"], i))
+        return _apply_norm(cfg, params["enc_norm"], x)
+
+    def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        x = _embed_tokens(params, tokens)
+        return x + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                        x.device).to(x.dtype)[None]
+
+    def dec_block(p: Params, x: torch.Tensor, enc_out: torch.Tensor
+                  ) -> torch.Tensor:
+        h = _apply_norm(cfg, p["ln1"], x)
+        x = x + attn.self_attention(
+            p["attn"], h, causal=True, rope_theta=cfg.rope_theta,
+            use_flash=cfg.use_flash, block_q=cfg.attn_block_q, **heads)
+        h = _apply_norm(cfg, p["lnx"], x)
+        x = x + attn.cross_attention(p["xattn"], h, enc_out,
+                                     block_q=cfg.attn_block_q, **heads)
+        h = _apply_norm(cfg, p["ln2"], x)
+        return x + _apply_mlp(cfg, p["mlp"], h)
+
+    def hidden_fn(params: Params, batch: Dict[str, torch.Tensor]
+                  ) -> torch.Tensor:
+        enc_out = encode(params, batch["frames"])
+        x = embed(params, batch["tokens"])
+        block = _maybe_remat(cfg, dec_block)
+        for i in range(cfg.n_layers):
+            x = block(_index(params["dec_layers"], i), x, enc_out)
+        return x
+
+    def loss_fn(params, batch):
+        return _loss_from_hidden(cfg, params, hidden_fn(params, batch),
+                                 batch)
+
+    def init_cache(batch: int, max_len: int, enc_len: int = 0,
+                   device=None) -> Params:
+        def zeros(length):
+            return torch.zeros((cfg.n_layers, batch, length, cfg.n_kv_heads,
+                                cfg.hd), dtype=cfg.dtype, device=device)
+        c = {"k": zeros(max_len), "v": zeros(max_len)}
+        if enc_len:
+            c["xk"], c["xv"] = zeros(enc_len), zeros(enc_len)
+        return c
+
+    def prefill(params: Params, batch: Dict[str, torch.Tensor], max_len: int
+                ) -> Tuple[torch.Tensor, Params]:
+        """The decoder's self-attention runs the plain ``mha`` here, as
+        the reference's prefill does; the encoder takes ``use_flash``."""
+        enc_out = encode(params, batch["frames"])
+        x = embed(params, batch["tokens"])
+        B, T = x.shape[:2]
+        cache = init_cache(B, max_len, enc_out.shape[1], x.device)
+        for i in range(cfg.n_layers):
+            lp, lc = _index(params["dec_layers"], i), _index(cache, i)
+            h = _apply_norm(cfg, lp["ln1"], x)
+            q, k, v = attn._project_qkv(lp["attn"], h, h, **heads)
+            if cfg.rope_theta > 0:
+                pos = torch.arange(T, device=x.device)
+                q = apply_rope(q, pos, cfg.rope_theta)
+                k = apply_rope(k, pos, cfg.rope_theta)
+            o = attn.mha(q, k, v, causal=True, block_q=cfg.attn_block_q)
+            x = x + o.reshape(B, T, -1) @ lp["attn"]["wo"]
+            h = _apply_norm(cfg, lp["lnx"], x)
+            x = x + attn.cross_attention(lp["xattn"], h, enc_out,
+                                         block_q=cfg.attn_block_q, **heads)
+            h = _apply_norm(cfg, lp["ln2"], x)
+            x = x + _apply_mlp(cfg, lp["mlp"], h)
+            # cross-attention K/V are static per request: cache them.
+            _, xk, xv = attn._project_qkv(lp["xattn"], h, enc_out, **heads)
+            lc["k"][:, :T] = k.to(cfg.dtype)
+            lc["v"][:, :T] = v.to(cfg.dtype)
+            lc["xk"].copy_(xk)
+            lc["xv"].copy_(xv)
+        return _last_logits(cfg, params, x), cache
+
+    def decode_step(params: Params, tok: torch.Tensor, cache: Params,
+                    pos: int) -> Tuple[torch.Tensor, Params]:
+        x = _embed_tokens(params, tok)          # [B, 1, D]
+        B = x.shape[0]
+        x = x + sinusoidal_position_at(pos, cfg.d_model, x.device).to(
+            x.dtype)[None, None]
+        for i in range(cfg.n_layers):
+            lp, lc = _index(params["dec_layers"], i), _index(cache, i)
+            h = _apply_norm(cfg, lp["ln1"], x)
+            h, _, _ = attn.decode_self_attention(
+                lp["attn"], h, lc["k"], lc["v"], pos,
+                rope_theta=cfg.rope_theta, **heads)
+            x = x + h
+            h = _apply_norm(cfg, lp["lnx"], x)
+            q = (h @ lp["xattn"]["wq"]).reshape(B, 1, cfg.n_heads, cfg.hd)
+            o = attn.mha(q, lc["xk"], lc["xv"], causal=False)
+            x = x + o.reshape(B, 1, -1) @ lp["xattn"]["wo"]
+            h = _apply_norm(cfg, lp["ln2"], x)
+            x = x + _apply_mlp(cfg, lp["mlp"], h)
+        return _last_logits(cfg, params, x), cache
+
+    return Model(cfg, init, hidden_fn, loss_fn, prefill, decode_step,
+                 init_cache)
+
+
 # ---------------------------------------------------------------------------
 # Parameter accounting (roofline MODEL_FLOPS)
 # ---------------------------------------------------------------------------
@@ -519,6 +790,12 @@ def param_count(params: Params) -> int:
 
 
 def active_param_count(cfg: LMConfig, params: Params) -> int:
-    """Parameters touched per token: every one in the ported (dense and
-    zamba) families; MoE's top-k share comes with that family."""
-    return param_count(params)
+    """Parameters touched per token (MoE: top_k of n_experts)."""
+    total = param_count(params)
+    if cfg.family != "moe" or cfg.moe is None:
+        return total
+    moe = params["layers"]["moe"]
+    expert_leaves = sum(moe[name].numel()
+                        for name in ("w_gate", "w_up", "w_down"))
+    active = expert_leaves * cfg.moe.top_k / cfg.moe.n_experts
+    return int(total - expert_leaves + active)

@@ -58,6 +58,16 @@ OTHER = {"bf16": "tf32", "tf32": "bf16"}
 F32 = {"p": "f32", "s_in": "f32", "kw": "f32"}
 
 
+def kernel_design(dtype: torch.dtype, dk: int, dv: int) -> dict:
+    """The rounding of the kernel that ``dispatch`` in csrc/gla_scan.cu
+    picks for a call: the tensor-core kernel's (``DESIGN``) for bf16 at
+    its shapes, none for the CUDA-core kernel (f32, other bf16 shapes
+    and every head wider than 128), whose products are f32 FMAs."""
+    if dtype == torch.bfloat16 and chip_smoke.gla_tensor_cores(dk, dv):
+        return DESIGN
+    return F32
+
+
 def emulate_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    a: torch.Tensor, chunk: int, normalize: bool,
                    design: dict):
@@ -253,18 +263,50 @@ def test_bf16_operands_miss_the_tolerance_where_tf32_meets_it():
 def test_chip_smoke_bf16_gla_cases_reach_the_kernel_edges():
     bf16 = [c for c in chip_smoke.GLA_CASES if c[6] == "bf16"]
     tc = [c for c in bf16 if chip_smoke.gla_tensor_cores(c[3], c[4])]
-    assert any(T % chunk for _, _, T, _, _, chunk, _, _ in tc)
-    assert any(norm and chunk == 256 for *_, chunk, _, norm in tc)
+    assert any(T % chunk for _, _, T, _, _, chunk, *_ in tc)
+    assert any(norm and chunk == 256 for *_, chunk, _, norm, _ in tc)
     assert any(dk != dv and chunk <= TILE
-               for _, _, _, dk, dv, chunk, _, _ in tc)
+               for _, _, _, dk, dv, chunk, *_ in tc)
     assert any(not chip_smoke.gla_tensor_cores(c[3], c[4]) for c in bf16)
+
+
+def test_chip_smoke_gla_cases_reach_the_wide_kernel():
+    """Wide heads (128 < dk <= 512) on the CUDA-core kernel: at
+    xlstm-350m's prefill (bf16, normalize, mLSTM draws, W=256) and ragged
+    at dk = dv = 256 in both dtypes."""
+    wide = [c for c in chip_smoke.GLA_CASES if c[3] > 128]
+    assert any(dk == dv == 512 and chunk == 256 and dt == "bf16" and norm
+               and draw == "mlstm"
+               for _, _, _, dk, dv, chunk, dt, norm, draw in wide)
+    for dtype in ("bf16", "f32"):
+        assert any(dk == dv == 256 and T % chunk and dt == dtype
+                   for _, _, T, dk, dv, chunk, dt, *_ in wide)
+    assert all(c[-1] in ("mamba2", "mlstm") for c in chip_smoke.GLA_CASES)
+
+
+def test_chip_smoke_mlstm_draws_follow_the_mlstm():
+    """``gla_inputs``'s mLSTM draws: log-decays logsigmoid(N(3, 1)) and k
+    scaled per step by exp(clip(2 N, -8, 8)) / sqrt(dk)."""
+    g = torch.Generator().manual_seed(0)
+    q, k, v, a = chip_smoke.gla_inputs(torch, g, 4, 512, 256, 256,
+                                       torch.float32, "mlstm")
+    assert float(a.max()) < 0 and abs(float(a.mean()) + 0.07) < 0.03
+    scale = k.pow(2).mean(-1).sqrt() * 256 ** 0.5      # per step
+    assert float(scale.max()) > 100 and float(scale.min()) < 1e-2
+    g = torch.Generator().manual_seed(0)
+    _, k2, _, a2 = chip_smoke.gla_inputs(torch, g, 4, 512, 256, 256,
+                                         torch.float32, "mamba2")
+    assert abs(float(k2.std()) - 0.3) < 0.01 and float(a2.mean()) < -0.1
 
 
 @pytest.mark.parametrize("dk,dv,want", [
     (64, 64, True), (128, 64, True), (16, 128, True), (16, 40, False),
-    (8, 64, False), (144, 64, False)])
+    (8, 64, False), (144, 64, False), (256, 256, False), (512, 512, False)])
 def test_chip_smoke_gla_route_by_shape(dk, dv, want):
     assert chip_smoke.gla_tensor_cores(dk, dv) is want
+    design = kernel_design(torch.bfloat16, dk, dv)
+    assert design == (DESIGN if want else F32)
+    assert kernel_design(torch.float32, dk, dv) == F32
 
 
 GLA_SASS = """

@@ -48,7 +48,9 @@ from repro_torch.models.lm import ssm as tssm
 from repro_torch.models.lm.fleet_configs import FLEET_ATTN, FLEET_GLA
 from repro_torch.models.lm.layerstack import lm_layerstack
 from repro_torch.models.lm.model import LMConfig
+from repro_torch.models.lm.moe import MoEConfig
 from repro_torch.models.lm.ssm import SSMConfig
+from repro_torch.models.lm.xlstm import XLSTMConfig
 from tests.test_kernel_oracle import (E2E_LOSS_RTOL, E2E_PARAM_ATOL,
                                       E2E_PARAM_RTOL)
 from tests.test_torch_hybrid_step import INT8_LOSS
@@ -63,8 +65,10 @@ def to_torch_config(cfg: JaxLMConfig) -> LMConfig:
     """The port's config with every field of ``cfg`` (dtype mapped)."""
     kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
     kw["dtype"] = getattr(torch, jnp.dtype(cfg.dtype).name)
-    if cfg.ssm is not None:
-        kw["ssm"] = SSMConfig(**dataclasses.asdict(cfg.ssm))
+    for name, cls in (("ssm", SSMConfig), ("moe", MoEConfig),
+                      ("xlstm", XLSTMConfig)):
+        if getattr(cfg, name) is not None:
+            kw[name] = cls(**dataclasses.asdict(getattr(cfg, name)))
     return LMConfig(**kw)
 
 
