@@ -20,11 +20,12 @@ Phases (every one that fails exits non-zero; there is no CPU path):
    rows included; flash attention and the GLA scan within the ``TOL``
    rule of tests/test_kernel_oracle.py (``atol + ulps * ulp`` in the
    storage dtype), at phase 9's prefill shapes too (the GLA at
-   xlstm-350m's 512-wide heads on the CUDA-core kernel).  Times from CUDA
+   xlstm-350m's 512-wide heads on the CUDA-core kernel, flash at
+   gemma3-12b's 256-wide heads, global and windowed).  Times from CUDA
    events over CUDA-graph replays (device time, L2 warm); the library
-   time is one PyTorch call
-   computing the same function, where there is one
-   (``scaled_dot_product_attention`` for attention without a window).
+   time is one PyTorch call computing the same function, where there is
+   one (``scaled_dot_product_attention``; a window goes in as an explicit
+   boolean mask).
 4. AlexNet 224x224 at full width, B=64, int8 wire: ``Fleet.from_table2``
    -> ``plan`` -> ``Plan.init_params`` -> ``Plan.step_fn`` on the M=1
    triple and the M=4 star; ``wire="none"`` on the same cuts against
@@ -59,13 +60,16 @@ Phases (every one that fails exits non-zero; there is no CPU path):
    the tree step and the star step, from the same params and batch under
    ``cudnn.deterministic``, must be bitwise equal.  Then phase 5's
    ``Plan.train`` checks on the E=2 tree, with its own straggler.
-9. Serving zamba2-7b, qwen2.5-3b, qwen2-moe-a2.7b, xlstm-350m and
-   whisper-base at their published configs, full depth, and grok-1-314b
-   at its published widths cut to 2 of 64 layers (listed as reduced),
-   bf16, ``use_flash`` and ``use_gla_kernel``: ``build_model`` ->
-   ``init`` on the card -> ``generate`` (B=4 prompts of 2,048 tokens;
-   whisper-base 64 tokens over 1,500 seeded frames, max_len 448; 32
-   greedy new tokens), twice, bitwise equal; (a) the kernel prefill's
+9. Serving zamba2-7b, qwen2.5-3b, qwen2-moe-a2.7b, xlstm-350m,
+   whisper-base, gemma3-12b, phi3-medium-14b, granite-20b and pixtral-12b
+   at their published configs, full depth, and grok-1-314b at its
+   published widths cut to 2 of 64 layers (listed as reduced), bf16,
+   ``use_flash`` and ``use_gla_kernel``: ``build_model`` -> ``init`` on
+   the card -> ``generate`` (B=4 prompts of 2,048 positions: pixtral-12b's
+   are 1,024 seeded bf16 patch embeddings, then 1,024 tokens, and its
+   decode positions count them; whisper-base 64 tokens over 1,500 seeded
+   frames, max_len 448; 32 greedy new tokens), twice, bitwise equal; (a)
+   the kernel prefill's
    last logits against the same prefill on the plain paths, (b) eight
    teacher-forced decode steps against the kernel forward over the
    prompt and those tokens (MoE: on a no-drop variant), both within
@@ -121,39 +125,51 @@ Z7_B, Z7_LR, Z7_STEPS = 8, 5e-4, 3
 
 # Serving (phase 9): the published configs at full depth (grok-1-314b
 # cut to 2 of its 64 layers: 314B parameters do not fit one card), B
-# prompts of SERVE_T tokens, SERVE_NEW greedy new tokens through
+# prompts of SERVE_T positions, SERVE_NEW greedy new tokens through
 # ``generate``, and SERVE_TF teacher-forced decode steps held against the
-# forward.  whisper-base takes its own shape: SERVE_FRAMES frames (30 s
-# of audio after the stubbed conv frontend, its max_source_positions), a
+# forward.  pixtral-12b's positions start with its stubbed ViT's patch
+# embeddings, as many as ``configs.base.input_specs`` gives (1,024 of
+# 2,048).  whisper-base takes its own shape: SERVE_FRAMES frames (30 s of
+# audio after the stubbed conv frontend, its max_source_positions), a
 # WHISPER_T-token decoder prompt and max_len WHISPER_MAX_LEN (its
 # max_target_positions).
 SERVE_ARCHS = ("zamba2-7b", "qwen2.5-3b", "qwen2-moe-a2.7b", "xlstm-350m",
-               "whisper-base", "grok-1-314b")
+               "whisper-base", "grok-1-314b", "gemma3-12b", "phi3-medium-14b",
+               "granite-20b", "pixtral-12b")
 SERVE_B, SERVE_T, SERVE_NEW, SERVE_TF = 4, 2048, 32, 8
 SERVE_REDUCED = {"grok-1-314b": {"n_layers": 2}}
 SERVE_FRAMES, WHISPER_T, WHISPER_MAX_LEN = 1500, 64, 448
 # (a) kernel prefill vs plain prefill and (b) decode steps vs the kernel
 # forward, as max |difference| over the largest |logit| (``rel_err``): at
-# least twice (margin 2) what tests/test_torch_serve_kernels.py and
-# tests/test_torch_serve_tolerances.py measure on the CPU in bf16 at
-# these archs' served depth, expert count, head and
-# state widths (d_model, FF widths and vocab cut, B=2, T=512), the
-# kernels' rounding emulated: zamba2-7b 0.1261 and 0.0977, qwen2.5-3b
-# 0.0196 and 0.0194, xlstm-350m 0.0805 and 0.0486, whisper-base 0.0061
-# and 0.0082.  Random bf16 weights through 81 Mamba2 or 24 xLSTM layers
-# amplify a last-bit difference.  In an MoE a last-bit difference in a
-# router logit flips a token's choice of experts, which moves its output
-# as far as a wrong model would, and at 24 layers of 60 experts the flips
-# reach most rows; so the MoE archs compare with one side's routing
-# replayed on the other (``Routes``), and the flips are counted and
-# printed but not held: measured so, grok-1-314b 0.0094 and 0.0105,
-# qwen2-moe-a2.7b 0.0617 and 0.1120 (0.8616 and 1.2664 with each side's
-# own routing, 17,973 of 24,576 (layer, token) choices flipped in (a)).  The kernels themselves are held to the
-# TOL rule in phase 3, and the ports of these models to JAX's on the CPU
-# (tests/test_torch_serve_families.py).
+# least twice (margin 2) what tests/test_torch_serve_kernels.py,
+# tests/test_torch_serve_tolerances.py,
+# tests/test_torch_serve_dense_tolerances.py and
+# tests/test_torch_serve_gqa_tolerances.py measure on the CPU in bf16 at
+# these archs' served depth, expert count, heads, KV heads, head and
+# state widths (d_model, FF widths and, but for qwen2-moe-a2.7b, vocab
+# cut; B=2, T=512 positions, gemma3-12b's window 256 and pixtral-12b's
+# prefix 256 to keep their share of the prompt), the kernels' rounding
+# emulated: zamba2-7b 0.1261 and 0.0977, qwen2.5-3b 0.0196 and 0.0194,
+# xlstm-350m 0.0805 and 0.0486, whisper-base 0.0061 and 0.0082,
+# gemma3-12b 0.0149 and 0.0196, phi3-medium-14b 0.0169 and 0.0201,
+# granite-20b 0.0179 and 0.0163, pixtral-12b 0.0225 and 0.0260.  Random
+# bf16 weights through 81 Mamba2 or 24 xLSTM layers amplify a last-bit
+# difference.  In an MoE a last-bit difference in a router logit flips a
+# token's choice of experts, which moves its output as far as a wrong
+# model would, and at 24 layers of 60 experts the flips reach most rows;
+# so the MoE archs compare with one side's routing replayed on the other
+# (``Routes``), and the flips are counted and printed but not held:
+# measured so, grok-1-314b 0.0094 and 0.0105, qwen2-moe-a2.7b 0.1030 and
+# 0.1200 (1.0645 and 1.2480 with each side's own routing, 17,922 of
+# 24,576 (layer, token) choices flipped in (a); with the vocab cut to
+# 8,192 it read 0.0617 and 0.1120, half the card's (a)).  The kernels
+# themselves are held to the TOL rule in phase 3, and the ports of these
+# models to JAX's on the CPU (tests/test_torch_serve_families.py).
 SERVE_TOL = {"zamba2-7b": (0.26, 0.2), "qwen2.5-3b": (0.04, 0.04),
-             "qwen2-moe-a2.7b": (0.13, 0.23), "xlstm-350m": (0.17, 0.1),
-             "whisper-base": (0.02, 0.02), "grok-1-314b": (0.02, 0.022)}
+             "qwen2-moe-a2.7b": (0.21, 0.25), "xlstm-350m": (0.17, 0.1),
+             "whisper-base": (0.02, 0.02), "grok-1-314b": (0.02, 0.022),
+             "gemma3-12b": (0.03, 0.04), "phi3-medium-14b": (0.035, 0.045),
+             "granite-20b": (0.04, 0.035), "pixtral-12b": (0.05, 0.055)}
 
 # Pinned kernel tolerances of tests/test_kernel_oracle.py:40-49:
 # |got - want| <= atol + ulps * ulp_dtype(|want|).
@@ -494,7 +510,32 @@ FLASH_CASES = (
      "bf16", True, 0),
     ("whisper_base_encoder_4x8_1500_64", 4 * 8, 4 * 8, 1500, 1500, 64,
      "bf16", False, 0),
+    # gemma3-12b (B=4 x 16 query heads over 8 KV heads of 256, GQA rep 2):
+    # every 6th layer global, the other five windowed at 1,024;
+    # phi3-medium-14b (B=4 x 40 over 10 of 128, rep 4), granite-20b (B=4 x
+    # 48 over one KV head of 128: MQA, rep 48) and pixtral-12b (B=4 x 32
+    # over 8 of 128, rep 4; 1,024 patch embeddings then 1,024 tokens)
+    ("gemma3_12b_global_4x16_2048_256_gqa2", 4 * 16, 4 * 8, 2048, 2048,
+     256, "bf16", True, 0),
+    ("gemma3_12b_local_4x16_2048_256_w1024", 4 * 16, 4 * 8, 2048, 2048,
+     256, "bf16", True, 1024),
+    ("phi3_medium_prefill_4x40_2048_128_gqa4", 4 * 40, 4 * 10, 2048, 2048,
+     128, "bf16", True, 0),
+    ("granite_20b_prefill_4x48_2048_128_mqa", 4 * 48, 4 * 1, 2048, 2048,
+     128, "bf16", True, 0),
+    ("pixtral_12b_prefill_4x32_2048_128_gqa4", 4 * 32, 4 * 8, 2048, 2048,
+     128, "bf16", True, 0),
+    ("f32_ragged_w64_8x4_300_256", 8, 4, 300, 300, 256, "f32", True, 64),
 )
+
+
+def window_mask(torch, T: int, S: int, causal: bool, window: int, dev):
+    """The boolean ``[T, S]`` mask (True = attend) of a windowed row:
+    ``kpos > qpos - window``, and ``kpos <= qpos`` if causal."""
+    qpos = torch.arange(T, device=dev)[:, None]
+    kpos = torch.arange(S, device=dev)[None, :]
+    keep = kpos > qpos - window
+    return keep & (kpos <= qpos) if causal else keep
 
 
 def check_flash(torch, fa, ref) -> dict:
@@ -521,11 +562,14 @@ def check_flash(torch, fa, ref) -> dict:
         flops = 4.0 * hd * BH * attention_pairs(T, S, causal, window)
         bnd, by = bound(nbytes, flops, rate)
         heavy = BH * T * S > 2 ** 26
-        library = None
-        if window == 0:     # SDPA's causal mask is top-left, as ours
-            qs, ks, vs = q[None], k[None], v[None]
-            library = graph_ms(torch, lambda: F.scaled_dot_product_attention(
-                qs, ks, vs, is_causal=causal, enable_gqa=BH != BKV))
+        # SDPA computes the same function: its causal mask is top-left, as
+        # ours; a window goes in as an explicit boolean [T, S] mask.
+        qs, ks, vs = q[None], k[None], v[None]
+        mask = None if window == 0 else window_mask(torch, T, S, causal,
+                                                    window, dev)
+        library = graph_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=BH != BKV))
         row = {"case": name, "shape": {"q": [BH, T, hd], "kv": [BKV, S, hd]},
                "dtype": str(dtype), "causal": causal, "window": window,
                "ok": ok_o and ok_l, "max_abs_err": max(err_o, err_l),
@@ -539,11 +583,10 @@ def check_flash(torch, fa, ref) -> dict:
                "bound_ms": bnd, "bound_by": by, "library_ms": library,
                "flops": flops, "bytes": nbytes}
         rows[name] = row
-        lib = "none" if library is None else f"{library:.5f}"
         print(f"  {name:30s} ok={row['ok']} o err {err_o:.3e} "
               f"({ex_o:.3f} of tol) lse err {err_l:.3e} ({ex_l:.3f}); "
               f"kernel {row['ms']:.5f} ms plain {row['plain_ms']:.5f} ms "
-              f"bound {bnd:.5f} ms ({by}) library {lib} ms")
+              f"bound {bnd:.5f} ms ({by}) library {library:.5f} ms")
         if not row["ok"]:
             fail(f"flash_attention disagrees with its plain version on "
                  f"{name}")
@@ -1417,19 +1460,34 @@ def no_drop_variant(cfg):
     return cfg.variant(moe=moe)
 
 
-def serve_inputs(torch, cfg, g) -> tuple:
-    """(prompt batch, tokens ``[B, prompt + SERVE_TF]``, max_len): token
-    prompts from ``g``; whisper-base also gets seeded bf16 frames."""
+def serve_inputs(torch, cfg, g, B: int, T: int) -> tuple:
+    """(prompt batch, tokens ``[B, prompt tokens + SERVE_TF]``, max_len)
+    of ``B`` prompts of ``T`` positions, drawn from ``g``.  whisper-base
+    takes ``WHISPER_T`` tokens and seeded bf16 frames; a config with a
+    frontend stub (pixtral-12b) takes ``P = min(n_frontend_tokens, T //
+    2)`` seeded bf16 patch embeddings, then ``T - P`` tokens, as
+    ``configs.base.input_specs`` shapes its prompts."""
     encdec = cfg.family == "encdec"
-    T = WHISPER_T if encdec else SERVE_T
-    toks = torch.randint(0, cfg.vocab, (SERVE_B, T + SERVE_TF),
-                         generator=g, device=g.device)
-    batch = {"tokens": toks[:, :T]}
+    P = min(cfg.n_frontend_tokens, T // 2)
+    n_tok = WHISPER_T if encdec else T - P
+    toks = torch.randint(0, cfg.vocab, (B, n_tok + SERVE_TF), generator=g,
+                         device=g.device)
+    batch = {"tokens": toks[:, :n_tok]}
     if encdec:
-        batch["frames"] = torch.randn(SERVE_B, SERVE_FRAMES, cfg.d_model,
+        batch["frames"] = torch.randn(B, SERVE_FRAMES, cfg.d_model,
                                       generator=g, device=g.device).to(
                                           cfg.dtype)
+    elif P:
+        batch["embeds"] = torch.randn(B, P, cfg.d_model, generator=g,
+                                      device=g.device).to(cfg.dtype)
     return batch, toks, WHISPER_MAX_LEN if encdec else T + SERVE_NEW
+
+
+def prefix_len(batch) -> int:
+    """Positions ahead of the prompt's tokens: the ``embeds`` prefix
+    (pixtral-12b's patch embeddings), else 0.  Decode positions are
+    absolute, so they count it (``serve.engine.generate``)."""
+    return batch["embeds"].shape[1] if "embeds" in batch else 0
 
 
 def rel_err(got, want) -> float:
@@ -1442,10 +1500,10 @@ def forward_logits(torch, lm_model, model, params, batch, toks):
     """f32 logits of the kernel forward (``hidden_fn``) over the prompt
     and the teacher-forced tokens, from the prompt's last position on:
     ``[B, 1 + SERVE_TF, V]``."""
-    T = batch["tokens"].shape[1]
+    end = prefix_len(batch) + batch["tokens"].shape[1]
     hidden = model.hidden_fn(params, dict(batch, tokens=toks))
     h = lm_model._apply_norm(model.cfg, params["final_norm"],
-                             hidden[:, T - 1:])
+                             hidden[:, end - 1:])
     del hidden
     return (h @ params["lm_head"]).float()
 
@@ -1504,14 +1562,14 @@ def decode_logits(model, params, batch, toks, max_len, around) -> tuple:
     """The prefill's last logits and those of ``SERVE_TF`` teacher-forced
     decode steps, each call inside ``around(t0)`` (t0 its first
     position)."""
-    T = batch["tokens"].shape[1]
+    T, P = batch["tokens"].shape[1], prefix_len(batch)
     with around(0):
         logits, cache = model.prefill(params, batch, max_len)
     steps = []
     for i in range(SERVE_TF):
-        with around(T + i):
+        with around(P + T + i):
             step, cache = model.decode_step(params, toks[:, T + i:T + i + 1],
-                                            cache, T + i)
+                                            cache, P + T + i)
         steps.append(step)
     del cache
     return logits, steps
@@ -1582,15 +1640,15 @@ def run_serve(torch, kernels, configs, lm_model, engine, arch) -> dict:
     n_params = lm_model.param_count(params)
     param_bytes = torch.cuda.memory_allocated()
     g = torch.Generator(device="cuda").manual_seed(BATCH_SEED)
-    batch, toks, max_len = serve_inputs(torch, cfg, g)
-    T = batch["tokens"].shape[1]
+    batch, toks, max_len = serve_inputs(torch, cfg, g, SERVE_B, SERVE_T)
+    T, P = batch["tokens"].shape[1], prefix_len(batch)
     per_prefill = serve_launches(cfg)
-    frames = "" if "frames" not in batch else \
-        f", frames {tuple(batch['frames'].shape)}"
+    extra = "".join(f", {k} {tuple(batch[k].shape)}"
+                    for k in ("frames", "embeds") if k in batch)
     print(f"  {label}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{n_params} parameters ({param_bytes / 2 ** 30:.3f} GiB "
           f"allocated), init {init_s:.2f} s; B={SERVE_B}, prompt "
-          f"{T}{frames}, {SERVE_NEW} new tokens, max_len {max_len}; "
+          f"{T} tokens{extra}, {SERVE_NEW} new tokens, max_len {max_len}; "
           f"reduced {reduced or 'nothing'}")
     with torch.inference_mode():
         torch.cuda.reset_peak_memory_stats()
@@ -1627,13 +1685,13 @@ def run_serve(torch, kernels, configs, lm_model, engine, arch) -> dict:
             torch.cuda.synchronize()
             zero_counters(kernels)
             t0 = time.perf_counter()
-            step, cache = model.decode_step(params, tok, cache, T + i)
+            step, cache = model.decode_step(params, tok, cache, P + T + i)
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
             step_launches.append(read_counters(kernels))
             step_logits.append(step)
         prof = profile_call(torch, lambda: model.decode_step(
-            params, toks[:, -1:], cache, T + SERVE_TF),
+            params, toks[:, -1:], cache, P + T + SERVE_TF),
             f"{label} decode step")
         del cache
         moe = None
@@ -1658,7 +1716,8 @@ def run_serve(torch, kernels, configs, lm_model, engine, arch) -> dict:
     busy = None if prof["device_busy_ms"] == 0 else \
         prof["device_busy_ms"] / prof["wall_ms"]
     res = {
-        "arch": arch, "reduced": reduced, "prompt": T, "max_len": max_len,
+        "arch": arch, "reduced": reduced, "prompt": T, "prefix": P,
+        "max_len": max_len,
         "no_drop_variant": None if moe is None else
         str(no_drop_variant(cfg).moe),
         "params": n_params, "param_bytes": param_bytes,
@@ -1674,8 +1733,9 @@ def run_serve(torch, kernels, configs, lm_model, engine, arch) -> dict:
         "launches_per_step": per_prefill,
         "prefill_launches": prefill_launches, "step_launches": step_launches,
         "tokens": gens[0]["out"].tokens[0].tolist()}
-    print(f"  {label} prefill ms {prefill_ms:.3f} (B={SERVE_B} x {T} "
-          f"tokens: {SERVE_B * T / prefill_ms * 1e3:.0f} tokens/s)")
+    print(f"  {label} prefill ms {prefill_ms:.3f} (B={SERVE_B} x {P + T} "
+          f"positions: {SERVE_B * (P + T) / prefill_ms * 1e3:.0f} "
+          f"positions/s)")
     print(f"  {label} decode ms per token {decode['median']:.3f} (median of "
           f"{decode['n']} steps after the first {decode['first']:.3f}; max "
           f"{decode['max']:.3f}): {res['decode_tokens_per_s']:.1f} tokens/s "

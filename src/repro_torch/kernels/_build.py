@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -91,6 +91,43 @@ def build_all() -> Dict[str, dict]:
         report[n] = {"seconds": 0.0 if p is None
                      else time.perf_counter() - t0, "log": text}
     return report
+
+
+def patched_source(name: str, patches) -> str:
+    """``csrc/<name>.cu`` with each ``(old, new)`` text patch applied; each
+    ``old`` must occur exactly once."""
+    src = (CSRC / f"{name}.cu").read_text()
+    for old, new in patches:
+        if src.count(old) != 1:
+            raise ValueError(f"{name}: patch anchor found {src.count(old)} "
+                             f"times: {old[:60]!r}")
+        src = src.replace(old, new)
+    return src
+
+
+def build_variants(name: str, sources: Dict[str, str]
+                   ) -> Dict[str, Tuple[ctypes.CDLL, str]]:
+    """Compile each ``{variant: source text}`` of kernel ``name`` at once
+    (one ``nvcc`` each) under ``build/repro_torch/variants/`` and load
+    them.  Returns each variant's library and ``nvcc``'s output."""
+    procs, libs = {}, {}
+    for variant, src in sources.items():
+        key = hashlib.sha256((src + " ".join(NVCC_FLAGS)).encode())
+        out = BUILD_ROOT / "variants" / \
+            f"{name}-{variant}-{key.hexdigest()[:16]}"
+        out.mkdir(parents=True, exist_ok=True)
+        (out / f"{name}.cu").write_text(src)
+        lib = out / f"lib{name}.so"
+        procs[variant] = (lib, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(lib), str(out / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for variant, (lib, proc) in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on {name} variant {variant}:\n"
+                               f"{text}")
+        libs[variant] = (ctypes.CDLL(str(lib)), text)
+    return libs
 
 
 def library(name: str) -> ctypes.CDLL:

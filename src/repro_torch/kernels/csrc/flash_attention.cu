@@ -32,17 +32,21 @@
 // to the other.
 //
 // flash_fwd_bf16, the tensor-core kernel (the FlashAttention-2 shape).
-// One block of 4 warps per (bh, 64-row query tile); warp w owns query rows
-// 16 w .. 16 w + 15 of the tile.
+// One block per (bh, BQ-row query tile), a warp per 16 query rows: warp w
+// owns rows 16 w .. 16 w + 15 of the tile.  BQ is 64 (4 warps) at hd 64,
+// 112 and 128, and 128 (8 warps) at hd 256 (bf16_block_q, below).
 //   - Copies: the Q tile and 64-key K and V tiles go to shared memory by
 //     cp.async.cg (16 B per thread and copy), K and V double-buffered, so
 //     the next tile's copy is in flight while this tile's products and
 //     softmax run.  Rows past T or S are zero-filled through cp.async's
 //     src-size operand.  Every row is padded by 16 B (stride hd + 8), which
-//     puts the 8 rows of each ldmatrix on distinct banks at hd 64, 112, 128.
-//   - S = Q K^T: mma.sync m16n8k16 bf16 -> f32.  Q's A fragments are loaded
-//     once by ldmatrix and stay in registers; K's B fragments come by
-//     ldmatrix from the [key][hd] rows.
+//     puts the 8 rows of each ldmatrix on distinct banks at hd 64, 112, 128
+//     and 256 (a stride of 16 mod 128 bytes).
+//   - S = Q K^T: mma.sync m16n8k16 bf16 -> f32.  Up to hd 128, Q's A
+//     fragments are loaded once by ldmatrix and stay in registers; at
+//     hd 256 they are loaded by ldmatrix from the Q tile at each k-step
+//     (see "hd 256" below).  K's B fragments come by ldmatrix from the
+//     [key][hd] rows.
 //   - Masks run only on the tiles that straddle the causal diagonal, the
 //     window edge or S (decided per warp).  Key tiles hidden from every row
 //     of the query tile are skipped when T == S (below).
@@ -65,9 +69,26 @@
 //     n-tiles).
 //   - Epilogue: o / max(l, 1e-30) in bf16, staged through the warp's own Q
 //     rows in shared memory and written in 16-byte stores; lse in f32.
-//   Shared memory: (64 + 4 * 64) rows of (hd + 8) bf16 = 46,080 B at hd 64,
-//   76,800 B at hd 112, 87,040 B at hd 128.  Registers are held to 4
-//   blocks per SM at hd 64 and 3 at hd 112 (bf16_min_blocks).
+//   Shared memory: (BQ + 4 * 64) rows of (hd + 8) bf16 = 46,080 B at hd 64,
+//   76,800 B at hd 112, 87,040 B at hd 128, 202,752 B at hd 256.
+//   Registers are held to 4 blocks per SM at hd 64 and 3 at hd 112
+//   (bf16_min_blocks).
+//   hd 256: what runs out is registers, not shared memory.  Holding Q's
+//   fragments (qf[16][4], 64 registers), the O accumulator (acc[32][4],
+//   128) and the scores (s[8][4], 32) would take 224 of a thread's 255
+//   before addresses and softmax state, and spill.  So Q's fragments are
+//   read from the Q tile, which stays in shared memory for the whole loop,
+//   at each k-step of Q K^T (one more ldmatrix per two mma.sync), leaving
+//   the accumulator and the scores in registers (ptxas still takes all 255
+//   and spills 212 bytes, against 280 with Q in registers).  The tile then
+//   fits one block per SM, so the block takes 128 query rows (8 warps)
+//   instead of 64: each K/V tile copied feeds twice as many rows, and the
+//   SM has 8 warps, not 4, to hide latency (1.32x faster on the card than
+//   64 rows at gemma3-12b's prefill, 1.73x than Q in registers:
+//   kernels/flash_variants.py, PERF.md).  The arithmetic and its
+//   rounding points are those of the narrower widths: which query rows
+//   share a block does not change any row's sequence of key tiles (a tile
+//   the mask hides from a row adds exact zeros to it, see below).
 //
 // flash_fwd_f32, the CUDA-core kernel.  The f32 TOL of the oracle
 // (2e-6 + 16 ulp) is met by no bf16 or TF32 tensor-core product, so f32
@@ -77,7 +98,7 @@
 // registers: thread (ty, tx) of a 16 x 16 grid owns rows ty + 16 i (i < 4),
 // score columns tx + 16 j (j < 4) and output columns tx + 16 j
 // (j < hd / 16).  Shared memory (f32): Q and K tiles [64][hd + 1], V
-// [64][hd] and P [64][65]: 115,456 B at hd 128.
+// [64][hd] and P [64][65]: 115,456 B at hd 128, 213,760 B at hd 256.
 //
 // Both kernels: rows past T are computed on zeros and never written; keys
 // past S get a score of -inf, so they add nothing even to a row whose keys
@@ -100,13 +121,15 @@ constexpr int kBQ = 64;
 constexpr int kBK = 64;
 constexpr float kNeg = -1e30f;
 
-// The key tiles [lo, hi) a query tile starting at q0 has to visit.
-__device__ __forceinline__ void key_tiles(int q0, int n_q, int S, int causal,
-                                          int window, int& lo, int& hi) {
+// The key tiles [lo, hi) a query tile of `bq` rows starting at q0 has to
+// visit.
+__device__ __forceinline__ void key_tiles(int q0, int bq, int n_q, int S,
+                                          int causal, int window, int& lo,
+                                          int& hi) {
   lo = 0;
   hi = (S + kBK - 1) / kBK;
   if (n_q == S) {
-    const int q_last = min(q0 + kBQ, n_q) - 1;
+    const int q_last = min(q0 + bq, n_q) - 1;
     if (causal) hi = min(hi, q_last / kBK + 1);
     if (window > 0) lo = max(0, q0 - window + 1) / kBK;
   }
@@ -116,18 +139,35 @@ __device__ __forceinline__ void key_tiles(int q0, int n_q, int S, int causal,
 // bf16: tensor cores.
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaThreads = 32 * kBQ / 16;   // a warp per 16 query rows
-static_assert(kBQ == kBK, "load_tile copies Q tiles and K, V tiles alike");
+// Query rows per block: 64, or 128 at hd 256 (one block per SM there, see
+// "hd 256" above).
+template <int HD>
+__host__ __device__ constexpr int bf16_block_q() {
+  return HD == 256 ? 128 : 64;
+}
+
+// A warp per 16 query rows.
+template <int HD>
+__host__ __device__ constexpr int bf16_threads() {
+  return 32 * bf16_block_q<HD>() / 16;
+}
+
+// Whether Q's A fragments stay in registers for the whole loop (else they
+// are read from the Q tile at each k-step).
+template <int HD>
+__host__ __device__ constexpr bool bf16_q_in_registers() {
+  return HD <= 128;
+}
 
 template <int HD>
 constexpr int bf16_smem_bytes() {
-  return (kBQ + 4 * kBK) * (HD + 8) * 2;
+  return (bf16_block_q<HD>() + 4 * kBK) * (HD + 8) * 2;
 }
 
 // Blocks per SM the register allocation must allow: 4 at hd 64 (128
 // registers), 3 at hd 112 (168 registers and some spill, still faster on
 // the card than 2 blocks without); at hd 128 ptxas chooses (2 blocks),
-// since a cap there was slower.
+// since a cap there was slower; at hd 256 shared memory allows one.
 template <int HD>
 __host__ __device__ constexpr int bf16_min_blocks() {
   return HD == 64 ? 4 : HD == 112 ? 3 : 1;
@@ -199,17 +239,18 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// Rows [row0, row0 + 64) of a [n_rows, HD] bf16 matrix into shared memory
-// at `dst` (row stride HD + 8); rows past n_rows are zero-filled.
-template <int HD>
+// Rows [row0, row0 + ROWS) of a [n_rows, HD] bf16 matrix into shared
+// memory at `dst` (row stride HD + 8), by THREADS threads; rows past n_rows
+// are zero-filled.
+template <int HD, int ROWS, int THREADS>
 __device__ __forceinline__ void load_tile(uint32_t dst,
                                           const __nv_bfloat16* src, int row0,
                                           int n_rows, int tid) {
   constexpr int CH = HD / 8;  // 16-byte chunks per row
-  static_assert(kBK * CH % kMmaThreads == 0, "whole chunks per thread");
+  static_assert(ROWS * CH % THREADS == 0, "whole chunks per thread");
 #pragma unroll
-  for (int i = 0; i < kBK * CH / kMmaThreads; ++i) {
-    const int c = tid + i * kMmaThreads;
+  for (int i = 0; i < ROWS * CH / THREADS; ++i) {
+    const int c = tid + i * THREADS;
     const int r = c / CH, ch = c - r * CH;
     const bool in = row0 + r < n_rows;
     const __nv_bfloat16* from =
@@ -219,7 +260,7 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kMmaThreads, bf16_min_blocks<HD>())
+__global__ void __launch_bounds__(bf16_threads<HD>(), bf16_min_blocks<HD>())
 flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v,
@@ -230,18 +271,21 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   constexpr int KS = HD / 16;           // k-steps of Q K^T
   constexpr int NO = HD / 8;            // n-tiles of O
   constexpr int NS = kBK / 8;           // n-tiles of S
+  constexpr int BQ = bf16_block_q<HD>();
+  constexpr int NT = bf16_threads<HD>();
+  constexpr bool QREG = bf16_q_in_registers<HD>();
   constexpr uint32_t TILE = kBK * STR * 2;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
   const uint32_t qs = smem_addr(smem);
-  const uint32_t ks = qs + kBQ * STR * 2;   // [2][kBK][STR]
+  const uint32_t ks = qs + BQ * STR * 2;    // [2][kBK][STR]
   const uint32_t vs = ks + 2 * TILE;        // [2][kBK][STR]
   const float c2 = scale * 1.4426950408889634f;   // scale * log2(e)
 
   // The query tiles of a head are adjacent blocks (they share K and V in
   // L2), the longest causal rows first.
   const int bh = blockIdx.x / n_qt;
-  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x % n_qt)) * kBQ;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.x % n_qt)) * BQ;
   const int kvh = bh / rep;
   const __nv_bfloat16* qb = q + static_cast<long long>(bh) * n_q * HD;
   const __nv_bfloat16* kb = k + static_cast<long long>(kvh) * S * HD;
@@ -252,22 +296,27 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   const int r_lo = q0 + 16 * warp;          // the warp's first query row
 
   int kt_lo, kt_hi;
-  key_tiles(q0, n_q, S, causal, window, kt_lo, kt_hi);
+  key_tiles(q0, BQ, n_q, S, causal, window, kt_lo, kt_hi);
 
-  load_tile<HD>(qs, qb, q0, n_q, tid);
+  load_tile<HD, BQ, NT>(qs, qb, q0, n_q, tid);
   cp_async_commit();
-  load_tile<HD>(ks, kb, kt_lo * kBK, S, tid);
-  load_tile<HD>(vs, vb, kt_lo * kBK, S, tid);
+  load_tile<HD, kBK, NT>(ks, kb, kt_lo * kBK, S, tid);
+  load_tile<HD, kBK, NT>(vs, vb, kt_lo * kBK, S, tid);
   cp_async_commit();
 
-  // Q's A fragments, while the first K and V tiles are in flight.
-  uint32_t qf[KS][4];
-  cp_async_wait<1>();
-  __syncthreads();
+  // The lane's ldmatrix address in the warp's Q rows, at k-step 0.
+  const uint32_t q_lane =
+      qs + ((16 * warp + (lane & 15)) * STR + (lane >> 4) * 8) * 2;
+  // Q's A fragments, while the first K and V tiles are in flight (up to
+  // hd 128; at hd 256 the loop reads them, after its first wait, which
+  // also covers the Q tile's copy).
+  uint32_t qf[QREG ? KS : 1][4];
+  if constexpr (QREG) {
+    cp_async_wait<1>();
+    __syncthreads();
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-    ldmatrix_x4(qf[kk], qs + ((16 * warp + (lane & 15)) * STR + 16 * kk +
-                              (lane >> 4) * 8) * 2);
+    for (int kk = 0; kk < KS; ++kk) ldmatrix_x4(qf[kk], q_lane + 32 * kk);
+  }
 
   float acc[NO][4];
   float m[2] = {kNeg, kNeg};
@@ -280,8 +329,10 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
     const int buf = (kt - kt_lo) & 1;
     if (kt + 1 < kt_hi) {
-      load_tile<HD>(ks + (buf ^ 1) * TILE, kb, (kt + 1) * kBK, S, tid);
-      load_tile<HD>(vs + (buf ^ 1) * TILE, vb, (kt + 1) * kBK, S, tid);
+      load_tile<HD, kBK, NT>(ks + (buf ^ 1) * TILE, kb, (kt + 1) * kBK, S,
+                             tid);
+      load_tile<HD, kBK, NT>(vs + (buf ^ 1) * TILE, vb, (kt + 1) * kBK, S,
+                             tid);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -300,13 +351,20 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qa[4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+      } else {
+        ldmatrix_x4(qa, q_lane + 32 * kk);
+      }
 #pragma unroll
       for (int j = 0; j < NS; j += 2) {
         uint32_t b[4];
         ldmatrix_x4(b, kt_s + ((8 * j + (lane & 7) + ((lane >> 4) << 3)) * STR
                                + 16 * kk + ((lane >> 3) & 1) * 8) * 2);
-        mma_bf16(s[j], qf[kk], b[0], b[1]);
-        mma_bf16(s[j + 1], qf[kk], b[2], b[3]);
+        mma_bf16(s[j], qa, b[0], b[1]);
+        mma_bf16(s[j + 1], qa, b[2], b[3]);
       }
     }
 
@@ -393,7 +451,8 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
     __syncthreads();  // this buffer is refilled by the next copy
   }
 
-  // Epilogue: the warp's 16 rows through its own Q rows in shared memory.
+  // Epilogue: the warp's 16 rows through its own Q rows in shared memory
+  // (the loop's last __syncthreads ends every read of them).
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float lt = l[r] + __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -490,7 +549,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   int kt_lo, kt_hi;
-  key_tiles(q0, n_q, S, causal, window, kt_lo, kt_hi);
+  key_tiles(q0, kBQ, n_q, S, causal, window, kt_lo, kt_hi);
 
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
     const int k0 = kt * kBK;
@@ -590,7 +649,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 // Launch `kernel` with `bytes` of dynamic shared memory, raising the
 // kernel's limit once (outside any graph capture) per instance.
 template <typename T, typename Kernel>
-int run(Kernel kernel, bool& configured, int threads, int bytes,
+int run(Kernel kernel, bool& configured, int threads, int bq, int bytes,
         const void* q, const void* k, const void* v, void* o, float* lse,
         int bh, int n_q, int S, int rep, int causal, int window, float scale,
         cudaStream_t st) {
@@ -600,7 +659,7 @@ int run(Kernel kernel, bool& configured, int threads, int bytes,
     if (err != cudaSuccess) return int(err);
     configured = true;
   }
-  const int n_qt = (n_q + kBQ - 1) / kBQ;
+  const int n_qt = (n_q + bq - 1) / bq;
   const long long blocks = static_cast<long long>(bh) * n_qt;
   if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidValue);
   kernel<<<static_cast<unsigned>(blocks), threads, bytes, st>>>(
@@ -623,11 +682,11 @@ int launch(int is_bf16, const void* q, const void* k, const void* v,
         15)
       return int(cudaErrorMisalignedAddress);
     return run<__nv_bfloat16>(flash_fwd_bf16<HD>, bf16_configured,
-                              kMmaThreads, bf16_smem_bytes<HD>(), q, k, v, o,
-                              lse, bh, n_q, S, rep, causal, window, scale,
-                              st);
+                              bf16_threads<HD>(), bf16_block_q<HD>(),
+                              bf16_smem_bytes<HD>(), q, k, v, o, lse, bh,
+                              n_q, S, rep, causal, window, scale, st);
   }
-  return run<float>(flash_fwd_f32<HD>, f32_configured, kF32Threads,
+  return run<float>(flash_fwd_f32<HD>, f32_configured, kF32Threads, kBQ,
                     f32_smem_bytes<HD>(), q, k, v, o, lse, bh, n_q, S, rep,
                     causal, window, scale, st);
 }
@@ -646,6 +705,9 @@ int dispatch_hd(int hd, int is_bf16, const void* q, const void* k,
     case 128:
       return launch<128>(is_bf16, q, k, v, o, lse, bh, n_q, S, rep, causal,
                          window, scale, st);
+    case 256:
+      return launch<256>(is_bf16, q, k, v, o, lse, bh, n_q, S, rep, causal,
+                         window, scale, st);
     default:
       return int(cudaErrorInvalidValue);
   }
@@ -655,8 +717,8 @@ int dispatch_hd(int hd, int is_bf16, const void* q, const void* k,
 
 // q: [bh, n_q, hd]; k, v: [bkv, S, hd], all f32 (is_bf16 = 0) or all bf16
 // (is_bf16 = 1, 16-byte aligned), contiguous; bh = bkv * rep.
-// o: [bh, n_q, hd] in q's dtype; lse: [bh, n_q] f32.  hd is 64, 112 or
-// 128.  window <= 0 means no window.  Launches on `stream` and returns
+// o: [bh, n_q, hd] in q's dtype; lse: [bh, n_q] f32.  hd is 64, 112, 128
+// or 256.  window <= 0 means no window.  Launches on `stream` and returns
 // cudaGetLastError() (0 on success); it does not synchronise.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, float* lse,

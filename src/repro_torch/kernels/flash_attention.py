@@ -23,20 +23,26 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ref_flash_attention
 
-# Head widths the kernel is compiled for (zamba2-7b's 112 included).
-HEAD_DIMS = (64, 112, 128)
+# Head widths the kernel is compiled for (zamba2-7b's 112 and gemma3-12b's
+# 256 included).
+HEAD_DIMS = (64, 112, 128, 256)
 
 launches = 0
+
+
+def bind(lib: ctypes.CDLL):
+    """``lib``'s C entry point, typed."""
+    fn = lib.flash_attention_fwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + \
+        [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 @functools.cache
 def _kernel():
     """The C entry point, built and typed on first use."""
-    fn = _build.library("flash_attention").flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + \
-        [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return bind(_build.library("flash_attention"))
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -31,7 +31,6 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-import hashlib
 import json
 import statistics
 import subprocess
@@ -157,37 +156,7 @@ PLANS = {f"blocks{b}": b * 132 for b in (1, 2, 8, 16)}
 def patched_source(name: str) -> str:
     """The committed source with variant ``name``'s patches; each patch's
     text must occur exactly once."""
-    src = (_build.CSRC / "int8_quant.cu").read_text()
-    for old, new in PATCHES[name]:
-        if src.count(old) != 1:
-            raise ValueError(f"{name}: patch anchor found {src.count(old)} "
-                             f"times: {old[:60]!r}")
-        src = src.replace(old, new)
-    return src
-
-
-def build(names) -> Dict[str, ctypes.CDLL]:
-    """Compile every variant at once (one ``nvcc`` each) under
-    ``build/repro_torch/variants/`` and load them."""
-    procs, libs = {}, {}
-    for name in names:
-        src = patched_source(name)
-        key = hashlib.sha256((src + " ".join(_build.NVCC_FLAGS)).encode())
-        out = _build.BUILD_ROOT / "variants" / \
-            f"{name}-{key.hexdigest()[:16]}"
-        out.mkdir(parents=True, exist_ok=True)
-        (out / "int8_quant.cu").write_text(src)
-        lib = out / "libint8_quant.so"
-        procs[name] = (lib, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-             str(out / "int8_quant.cu")], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    for name, (lib, proc) in procs.items():
-        text, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on variant {name}:\n{text}")
-        libs[name] = ctypes.CDLL(str(lib))
-    return libs
+    return _build.patched_source("int8_quant", PATCHES[name])
 
 
 @contextlib.contextmanager
@@ -249,7 +218,8 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
-    libs = build(PATCHES)
+    libs = {n: lib for n, (lib, _) in _build.build_variants(
+        "int8_quant", {n: patched_source(n) for n in PATCHES}).items()}
     runs = [(n, libs[n], iq.TARGET_BLOCKS) for n in PATCHES]
     runs += [(n, libs["design"], t) for n, t in PLANS.items()]
     g = torch.Generator(device="cuda").manual_seed(0)

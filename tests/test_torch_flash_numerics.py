@@ -36,6 +36,8 @@ import torch
 
 import chip_smoke
 from repro.kernels import ref as jref
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_variants
 from tests.test_kernel_oracle import TOL, _ulp, assert_oracle_close
 
 jax.config.update("jax_platform_name", "cpu")
@@ -72,36 +74,39 @@ def emulate_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty_like(q)
     lse = torch.empty((BH, T), dtype=torch.float32)
     for q0 in range(0, T, TILE):
-        rows = torch.arange(q0, min(q0 + TILE, T))
+        q1 = min(q0 + TILE, T)
+        rows = torch.arange(q0, q1)
         lo, hi = 0, -(-S // TILE)
         if T == S:
             if causal:
-                hi = min(hi, (min(q0 + TILE, T) - 1) // TILE + 1)
+                hi = min(hi, (q1 - 1) // TILE + 1)
             if window > 0:
                 lo = max(0, q0 - window + 1) // TILE
-        m = torch.full((BH, len(rows)), NEG_INF)
-        l = torch.zeros((BH, len(rows)))
-        acc = torch.zeros((BH, len(rows), hd))
+        m = torch.full((BH, q1 - q0), NEG_INF)
+        l = torch.zeros((BH, q1 - q0))
+        acc = torch.zeros((BH, q1 - q0, hd))
         for kt in range(lo, hi):
-            keys = torch.arange(kt * TILE, min(kt * TILE + TILE, S))
-            s = q[:, rows] @ kf[:, keys].transpose(1, 2)
-            keep = torch.ones((len(rows), len(keys)), dtype=torch.bool)
+            k0, k1 = kt * TILE, min(kt * TILE + TILE, S)
+            s = q[:, q0:q1] @ kf[:, k0:k1].transpose(1, 2)
+            keys = torch.arange(k0, k1)
+            keep = torch.ones((q1 - q0, k1 - k0), dtype=torch.bool)
             if causal:
                 keep &= rows[:, None] >= keys[None, :]
             if window > 0:
                 keep &= keys[None, :] > rows[:, None] - window
-            s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+            if not bool(keep.all()):
+                s.masked_fill_(~keep, NEG_INF)
             mn = torch.maximum(m, s.amax(-1))
             alpha = torch.exp2((m - mn) * c2)
-            p = torch.exp2((s - mn[..., None]) * c2)
+            p = s.sub_(mn[..., None]).mul_(c2).exp2_()   # in place: s is done
             l = alpha * l + p.sum(-1)
             if p_round is not None:
                 p = p_round(p)
-            acc = acc * alpha[..., None] + p @ vf[:, keys]
+            acc.mul_(alpha[..., None]).add_(p @ vf[:, k0:k1])
             m = mn
         safe = l.clamp_min(1e-30)
-        o[:, rows] = acc / safe[..., None]
-        lse[:, rows] = torch.where(m == NEG_INF, m, m * scale) + \
+        o[:, q0:q1] = acc / safe[..., None]
+        lse[:, q0:q1] = torch.where(m == NEG_INF, m, m * scale) + \
             torch.log(safe)
     return o, lse
 
@@ -124,6 +129,11 @@ CASES = [
     pytest.param(4, 2, 300, 300, 64, True, 0, id="ragged_300_hd64"),
     pytest.param(2, 2, 200, 200, 112, False, 64, id="noncausal_w64_hd112"),
     pytest.param(4, 2, 128, 384, 128, False, 0, id="cross_128x384_hd128"),
+    # gemma3-12b's heads of 256 over half as many KV heads, windowed (five
+    # layers in six; the window binds on half the rows, as 1,024 does at
+    # the card's 2,048) and global
+    pytest.param(2, 1, 512, 512, 256, True, 256, id="window256_512_hd256"),
+    pytest.param(2, 1, 512, 512, 256, True, 0, id="causal_512_hd256"),
 ]
 
 
@@ -209,7 +219,39 @@ def test_chip_smoke_bf16_cases_reach_the_kernel_edges():
                for *_, causal, window in bf16)
     assert any(T != S and not causal and window == 0
                for _, _, _, T, S, _, _, causal, window in bf16)
-    assert {hd for *_, hd, _, _, _ in bf16} == {64, 112, 128}
+    assert {hd for *_, hd, _, _, _ in bf16} == {64, 112, 128, 256}
+    assert {hd for *_, hd, _, _, _ in chip_smoke.FLASH_CASES} == \
+        set(fa.HEAD_DIMS)
+
+
+def test_chip_smoke_times_sdpa_with_the_kernels_window():
+    """The library call of a windowed row: SDPA with the mask the kernel
+    applies (``kpos > qpos - window``, and causal), as a boolean [T, S]."""
+    T, window = 9, 3
+    for causal in (True, False):
+        keep = chip_smoke.window_mask(torch, T, T, causal, window, "cpu")
+        q, k = np.arange(T)[:, None], np.arange(T)[None, :]
+        want = (k > q - window) & ((k <= q) if causal else True)
+        np.testing.assert_array_equal(keep.numpy(), want)
+        assert int(keep.sum()) == chip_smoke.attention_pairs(T, T, causal,
+                                                              window)
+
+
+@pytest.mark.parametrize("name", sorted(flash_variants.PATCHES))
+def test_flash_variants_patch_the_committed_source(name):
+    """Each hd-256 variant's anchors occur once in csrc/flash_attention.cu
+    (a moved anchor fails here, not on the card)."""
+    src = flash_variants.patched_source(name)
+    assert (src == (fa._build.CSRC / "flash_attention.cu").read_text()) == \
+        (name == "design")
+
+
+def test_flash_variants_read_the_hd256_kernels_registers():
+    log = PTXAS.replace("ILi64E", "ILi256E").replace("128 registers",
+                                                     "255 registers")
+    assert flash_variants.ptxas_line(log) == (
+        "4 bytes spill stores, 8 bytes spill loads; Used 255 registers")
+    assert flash_variants.ptxas_line(PTXAS) == ""
 
 
 @pytest.mark.parametrize("T,S,causal,window,want", [

@@ -71,7 +71,7 @@ def assert_grads_close(got, want):
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 24),
                                            (False, 0), (False, 16)])
 @pytest.mark.parametrize("rep", [1, 2])
-@pytest.mark.parametrize("hd,T", [(16, 80), (112, 40)])
+@pytest.mark.parametrize("hd,T", [(16, 80), (112, 40), (256, 48)])
 def test_flash_plain_matches_jax(hd, T, rep, causal, window):
     rng = np.random.default_rng(hd * 1000 + T + rep)
     bkv = 2

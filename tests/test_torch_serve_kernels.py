@@ -97,10 +97,12 @@ CUT = {"qwen2.5-3b": lambda: _cut("qwen2.5-3b", d_model=512, d_ff=1376,
                                   vocab=8192),
        "zamba2-7b": lambda: _cut("zamba2-7b", d_model=448, n_heads=4,
                                  n_kv_heads=4, d_ff=1792, vocab=8192),
-       # 2 heads of 128 (16 in the published config), 60 experts top-4
+       # 2 heads of 128 (16 in the published config), 60 experts top-4;
+       # the published vocab: cut to 8,192 it read half the card's (a)
+       # (PERF.md §6)
        "qwen2-moe-a2.7b": lambda: _cut(
            "qwen2-moe-a2.7b", d_model=256, n_heads=2, n_kv_heads=2,
-           vocab=8192, moe=dict(d_ff_expert=64, d_ff_shared=256)),
+           moe=dict(d_ff_expert=64, d_ff_shared=256)),
        # one mLSTM head of 512 (2 x 256 / 1) and sLSTM heads of 256
        "xlstm-350m": lambda: _cut("xlstm-350m", d_model=256, vocab=8192,
                                   xlstm=dict(n_heads=1)),
@@ -108,47 +110,65 @@ CUT = {"qwen2.5-3b": lambda: _cut("qwen2.5-3b", d_model=512, d_ff=1376,
        # 6 query heads of 128 over 1 KV head (GQA rep 6), 8 experts top-2
        "grok-1-314b": lambda: _cut(
            "grok-1-314b", d_model=768, n_heads=6, n_kv_heads=1, vocab=8192,
-           moe=dict(d_ff_expert=512))}
+           moe=dict(d_ff_expert=512)),
+       # The dense archs of tests/test_torch_serve_dense_tolerances.py, cut
+       # as qwen2.5-3b.  gemma3-12b keeps its 16 heads of 256 over 8 and
+       # its five local layers to one global; its window shrinks with the
+       # prompt (1,024 of 2,048 on the card, 256 of 512 here), so it binds
+       # on half the rows in both.
+       "gemma3-12b": lambda: _cut("gemma3-12b", d_model=512, d_ff=1376,
+                                  vocab=8192, sliding_window=256),
+       "phi3-medium-14b": lambda: _cut("phi3-medium-14b", d_model=512,
+                                       d_ff=1376, vocab=8192),
+       # 48 query heads over one KV head (MQA); d_model and FF half the
+       # others' (at 512 this case took twice the others' time)
+       "granite-20b": lambda: _cut("granite-20b", d_model=256, d_ff=688,
+                                   vocab=8192),
+       # 256 patch embeddings, then 256 tokens (chip_smoke.serve_inputs)
+       "pixtral-12b": lambda: _cut("pixtral-12b", d_model=512, d_ff=1376,
+                                   vocab=8192)}
 MARGIN = 2.0
 B, T = 2, 512
+
+
+def emulated_flash(q, k, v, causal, window=0):
+    """``fa.flash_attention_fwd`` with the bf16 kernel's rounding."""
+    o, lse = flash_num.emulate_kernel(q.float(), k.float(), v.float(),
+                                      causal, window)
+    return o.to(q.dtype), lse
+
+
+def emulated_gla(q, k, v, a, chunk=128, normalize=False):
+    """``gs.gla_scan_fwd`` with the rounding of the kernel it takes."""
+    design = gla_num.kernel_design(q.dtype, q.shape[-1], v.shape[-1])
+    y, S, n = gla_num.emulate_kernel(q.float(), k.float(), v.float(),
+                                     a, chunk, normalize, design)
+    return y.to(v.dtype), S, n
 
 
 @pytest.fixture
 def emulated_kernels(monkeypatch):
     """The wrappers run the bf16 kernels' rounding emulations on CPU
     tensors (in place of their plain versions)."""
-    def flash(q, k, v, causal, window=0):
-        o, lse = flash_num.emulate_kernel(q.float(), k.float(), v.float(),
-                                          causal, window)
-        return o.to(q.dtype), lse
-
-    def gla(q, k, v, a, chunk=128, normalize=False):
-        design = gla_num.kernel_design(q.dtype, q.shape[-1], v.shape[-1])
-        y, S, n = gla_num.emulate_kernel(q.float(), k.float(), v.float(),
-                                         a, chunk, normalize, design)
-        return y.to(v.dtype), S, n
-    monkeypatch.setattr(fa, "flash_attention_fwd", flash)
-    monkeypatch.setattr(gs, "gla_scan_fwd", gla)
+    monkeypatch.setattr(fa, "flash_attention_fwd", emulated_flash)
+    monkeypatch.setattr(gs, "gla_scan_fwd", emulated_gla)
 
 
-def serve_errors(cfg) -> tuple:
-    """chip_smoke.run_serve's (a) and (b) on ``cfg`` at B, T (whisper:
-    chip_smoke's prompt and frame counts); MoE archs through
-    ``chip_smoke.moe_checks``, with one side's routing replayed."""
+def serve_errors(cfg, B: int = B, T: int = T) -> tuple:
+    """chip_smoke.run_serve's (a) and (b) on ``cfg`` for ``B`` prompts of
+    ``T`` positions, drawn by ``chip_smoke.serve_inputs`` (whisper: its
+    prompt and frame counts; pixtral: its prefix of embeddings); MoE archs
+    through ``chip_smoke.moe_checks``, with one side's routing
+    replayed."""
     kern = tmodel.build_model(cfg.variant(use_flash=True,
                                           use_gla_kernel=True))
     plain = tmodel.build_model(cfg.variant(use_flash=False,
                                            use_gla_kernel=False))
     params = kern.init(torch.Generator().manual_seed(chip_smoke.SEED))
     g = torch.Generator().manual_seed(chip_smoke.BATCH_SEED)
-    Tp = chip_smoke.WHISPER_T if cfg.family == "encdec" else T
-    toks = torch.randint(0, cfg.vocab, (B, Tp + chip_smoke.SERVE_TF),
-                         generator=g)
-    batch = {"tokens": toks[:, :Tp]}
-    if cfg.family == "encdec":
-        batch["frames"] = torch.randn(B, chip_smoke.SERVE_FRAMES,
-                                      cfg.d_model, generator=g).to(cfg.dtype)
-    max_len = Tp + chip_smoke.SERVE_TF
+    batch, toks, _ = chip_smoke.serve_inputs(torch, cfg, g, B, T)
+    max_len = chip_smoke.prefix_len(batch) + batch["tokens"].shape[1] + \
+        chip_smoke.SERVE_TF
     with torch.inference_mode():
         if cfg.family == "moe":
             logits, _ = kern.prefill(params, batch, max_len)
@@ -185,8 +205,13 @@ def check_serving_tolerances(arch: str) -> None:
 
 
 # The dense and zamba archs here, the moe / xlstm / encdec ones in
-# tests/test_torch_serve_tolerances.py (the files spread over workers).
+# tests/test_torch_serve_tolerances.py and the other dense ones in
+# tests/test_torch_serve_dense_tolerances.py and
+# tests/test_torch_serve_gqa_tolerances.py (the files spread over
+# workers).
 DENSE_ZAMBA = ("zamba2-7b", "qwen2.5-3b")
+DENSE_WIDE = ("gemma3-12b", "pixtral-12b")
+DENSE_GQA = ("phi3-medium-14b", "granite-20b")
 
 
 @pytest.mark.parametrize("arch", DENSE_ZAMBA)

@@ -13,18 +13,21 @@ import pytest
 import chip_smoke
 from tests.test_torch_serve import one_thread  # noqa: F401
 from tests.test_torch_serve_families import FAMILIES
-from tests.test_torch_serve_kernels import (DENSE_ZAMBA,
+from tests.test_torch_serve_kernels import (DENSE_GQA, DENSE_WIDE,
+                                            DENSE_ZAMBA,
                                             check_serving_tolerances,
                                             emulated_kernels)  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_thread")
 
-NEW = tuple(a for a in chip_smoke.SERVE_ARCHS if a not in DENSE_ZAMBA)
+NEW = tuple(a for a in chip_smoke.SERVE_ARCHS
+            if a not in DENSE_ZAMBA + DENSE_WIDE + DENSE_GQA)
 
 
 def test_every_served_arch_has_its_tolerance_measured():
     assert set(NEW) == set(FAMILIES)
-    assert set(NEW) | set(DENSE_ZAMBA) == set(chip_smoke.SERVE_ARCHS)
+    assert set(NEW) | set(DENSE_ZAMBA) | set(DENSE_WIDE) | \
+        set(DENSE_GQA) == set(chip_smoke.SERVE_ARCHS)
 
 
 @pytest.mark.parametrize("arch", NEW)
