@@ -1,6 +1,6 @@
 // Chunked gated linear recurrence for Hopper (sm_90a): the SSD / mLSTM
-// primitive.  bf16 runs on the tensor cores (mma.sync), f32 on the CUDA
-// cores.
+// primitive.  bf16 runs on the tensor cores (mma.sync, and wgmma at heads
+// wider than 128), f32 on the CUDA cores.
 //
 // Replaces src/repro/kernels/gla_scan.py::_gla_kernel (the Pallas TPU
 // kernel behind repro.kernels.gla_scan.gla_scan_fwd).  Per head bh, with a
@@ -33,14 +33,15 @@
 // cores.  So bytes bound it, but only once the products leave the CUDA
 // cores.
 //
-// Dispatch (dispatch): bf16 with dk and dv multiples of 16 (dk <= 128,
-// dv <= 128) and 16-byte aligned q, k, v goes to gla_fwd_bf16<DK, DV>,
-// with DK, DV the widths rounded up to 64 or 128 (zero-padded in shared
-// memory).  That takes every Mamba2 config of the port (head_dim 64,
-// d_state 64 or 128).  Every other shape up to dk = 512, f32 or bf16
-// (xLSTM's mLSTM heads of 256 and 512 among them), goes to gla_fwd<T> on
-// the CUDA cores.  The choice is by dtype and shape alone; no kernel falls
-// back to another.
+// Dispatch (dispatch): bf16 with dk and dv multiples of 16 and 16-byte
+// aligned q, k, v takes the tensor cores: up to 128 wide (dk <= 128, dv <=
+// 128) gla_fwd_bf16<DK, DV>, with DK, DV the widths rounded up to 64 or 128
+// (zero-padded in shared memory), which takes every Mamba2 config of the
+// port (head_dim 64, d_state 64 or 128); wider (dk up to 512, xLSTM's
+// mLSTM heads of 256 and 512) gla_fwd_wide_bf16<64>.  f32, and bf16
+// widths that are not multiples of 16, go to gla_fwd<T> on the CUDA
+// cores.  The choice is by dtype, shape and alignment alone; no kernel
+// falls back to another.
 //
 // gla_fwd_bf16, the tensor-core kernel.  One block of 4 warps per head
 // holds all of dv, so q and k are read once per head (not once per dv
@@ -121,8 +122,68 @@
 //   K o w in bf16 reaches 1.32 x through the state into later chunks' y;
 //   S_in in bf16 0.96 x.
 //
-// gla_fwd, the CUDA-core kernel (f32, bf16 shapes the tensor-core kernel
-// does not take, and every dk > 128).  The f32 TOL of the oracle (1e-4 +
+// gla_fwd_wide_bf16, the tensor-core kernel for bf16 heads wider than
+// 128 (it replaced gla_fwd there, which ran xlstm-350m's prefill at 155x
+// its bound).  At that prefill (16 heads, dk = dv = 512, W = 256) the
+// work is 43 GFLOP of scores (recomputed per dv slice) and 40 GFLOP of the
+// other products; the bound is 0.052 ms.
+//   - Grid (fill the card): 16 heads cannot fill 132 SMs, so a block of
+//     one warpgroup owns one (head, 64-column dv slice), 128 blocks there,
+//     and walks the chunks in order with its [DKP, 64] f32 slice of S and
+//     all of n in shared memory.  Every slice recomputes the scores and n,
+//     which do not depend on v; slice 0 writes n.
+//   - Shared memory (the state slice sets it): two stages of a Q and a K
+//     piece (64 rows x 64 columns of dk, bf16, 16 KB a stage), V^T of the
+//     key tile in TF32 (16 KB), two bf16 V tiles (18 KB), S as row pairs
+//     [DKP / 2][68] float2 (136 KB at dk 512), n, and ca (1 KB at W = 256):
+//     210,960 B at dk 512, W 256, 226,320 B at the largest chunk (4,096),
+//     with 1,024 B to align the tiles, under the 232,448 a block may have:
+//     one block per SM.  q and k stream through in 64-column pieces, so
+//     shared memory grows with dk only through S and n.  A 32-column slice
+//     would not fit two blocks per SM and doubles the scores' work.
+//   - Steps (chunk, 64-row query sub-tile, key tile at or before it,
+//     piece of dk), one step's copies in flight: cp.async.cg writes the Q
+//     and K pieces in the 128-byte swizzle wgmma reads (chunk ch of row r
+//     at ch ^ (r & 7); rows past W or n_t and columns past dk zero-filled
+//     through the src-size operand), and V with a key tile's first piece.
+//     cp.async, not TMA: a 3-D tensor map zero-fills only past T, not past
+//     the chunk.  A proxy fence makes the copies visible to wgmma.
+//   - Q K^T (512 columns deep at dk 512): wgmma m64n64k16 bf16 with f32
+//     accumulators, both operands K-major from the swizzled pieces, four
+//     k-steps a piece, in flight while q S_in runs.
+//   - P V and the state update (K o w)^T V: wgmma m64n64k8 TF32, A from
+//     registers (P from the scores' accumulators, K o w from ldmatrix.trans
+//     fragments of K), B = V^T: wgmma takes TF32 operands only K-major, so
+//     V is transposed once per key tile into a swizzled TF32 tile whose
+//     keys are permuted as the A fragments' (slot t <-> key 2 t, slot
+//     t + 4 <-> key 2 t + 1 in each group of 8, as in gla_fwd_bf16).
+//   - q S_in: mma.sync m16n8k8 TF32, A from Q's bf16 fragments, B from S's
+//     row pairs (S stays f32 and would need a second, TF32-split copy to
+//     be a wgmma operand).
+//   - Precision: each of the three f32 operands (S_in, P, K o w) is split
+//     into two TF32 parts (split_tf32), two products each: on the mLSTM's
+//     inputs (k scaled by up to e^8, the normalizer near its floor) one
+//     TF32 rounding of all three reaches 2.6x the bf16 y allowance, and
+//     leaving S_in or K o w at one rounding still misses it; split, y reads
+//     0.12 of it, as the f32 emulation does (tests/test_torch_gla_numerics
+//     .py).  den and n are summed in f32 on the CUDA cores.
+//   - The state update rides the last sub-tile's key loop, which visits
+//     every piece of every key tile: each piece's 64 rows of S are loaded
+//     (all before any store), scaled by e^{tot} at the first key tile
+//     (after a barrier, so every warp has read those rows of S_in) and
+//     updated in place.  The cumsum runs on all threads from device memory.
+//   Measured on the card (gla_variants.py; times in PERF.md): the copies
+//   alone take about 0.4 of the 0.96 ms at xlstm-350m's prefill and the
+//   products without the copies 0.8; q S_in and the state update are the
+//   largest parts.  Tried and not kept: two warpgroups a block, each with
+//   32 of the slice's columns (5 % slower: both issue the scores); a third
+//   copy stage (no faster: the copies are bound by L2 bandwidth, not
+//   latency); the next step's copies issued after the step's barrier, with
+//   no barrier at its end (no faster); P V and the state update on
+//   mma.sync (5 % slower).
+//
+// gla_fwd, the CUDA-core kernel (f32, and bf16 widths that are not
+// multiples of 16).  The f32 TOL of the oracle (1e-4 +
 // 64 ulp) is met by no bf16 or TF32 product (TF32 keeps 11 significant
 // bits), so f32 stays in f32 FMAs.  A whole [dk, dv] f32 state is 1 MiB at
 // 512 x 512, and one SM's shared memory is 227 KB, so one block of 256
@@ -144,14 +205,11 @@
 //     the chunk's key sub-tiles and stored back in place (a thread reads
 //     and writes only its own elements, and every query sub-tile has read
 //     S_in by then).
-// Every product is an f32 FMA on the CUDA cores, for bf16 too, which
-// meets the bf16 TOL with room to spare.  The scores are recomputed by
-// each of the dv / 64 slices of a head, and q and k are read once per
-// slice: at xlstm-350m's prefill (16 heads, dk = dv = 512, W = 256) that
-// is 8 slices, 128 blocks of 256 threads on 132 SMs, one block per SM.
-// Shared memory: [DKP][64] state, Q, K and P [64][65], V [64][64], n
-// [DKP] and 2 W floats, DKP = dk rounded up to 64: 83,968 B at dk = 64,
-// W = 128 and 201,472 B at dk = 512, W = 256.
+// Every product is an f32 FMA on the CUDA cores.  The scores are
+// recomputed by each of the dv / 64 slices of a head, and q and k are read
+// once per slice.  Shared memory: [DKP][64] state, Q, K and P [64][65], V
+// [64][64], n [DKP] and 2 W floats, DKP = dk rounded up to 64: 83,968 B
+// at dk = 64, W = 128 and 201,472 B at dk = 512, W = 256.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -573,14 +631,15 @@ __host__ __device__ constexpr int tc_min_blocks() {
   return DK == 64 && DV == 64 ? 3 : 1;
 }
 
-// Chunk rows [r0, r0 + 64) of a [n_t, ld] bf16 matrix (ld <= D columns
-// valid) into shared memory at `dst` (row stride D + 8); rows at or past
-// W or n_t and columns past ld are zero-filled.
+// Chunk rows [r0, r0 + 64) of a [n_t, ld] bf16 matrix, its first D
+// columns (`cols` <= D of them valid), into shared memory at `dst` (row
+// stride D + 8); rows at or past W or n_t and columns past `cols` are
+// zero-filled.
 template <int D>
 __device__ __forceinline__ void load_rows(uint32_t dst,
                                           const __nv_bfloat16* src, int ld,
-                                          long long t0, int r0, int W,
-                                          int n_t, int tid) {
+                                          int cols, long long t0, int r0,
+                                          int W, int n_t, int tid) {
   constexpr int CH = D / 8;   // 16-byte chunks per row
   static_assert(kTile * CH % kTcThreads == 0, "whole chunks per thread");
 #pragma unroll
@@ -588,23 +647,24 @@ __device__ __forceinline__ void load_rows(uint32_t dst,
     const int c = tid + i * kTcThreads;
     const int r = c / CH, ch = c - r * CH;
     const long long t = t0 + r0 + r;
-    const bool in = r0 + r < W && t < n_t && ch * 8 < ld;
+    const bool in = r0 + r < W && t < n_t && ch * 8 < cols;
     cp_async16(dst + (r * (D + 8) + ch * 8) * 2, in ? src + t * ld + ch * 8
                                                     : src, in ? 16 : 0);
   }
 }
 
-// Inclusive cumsum of the chunk's a (as[0 .. Wp)) into ca, by every
-// thread: a run of `per` rows each, a shuffle scan within each warp, and
-// the warp totals across them.  Ends before the block's barrier that
-// publishes ca.
-__device__ __forceinline__ void chunk_cumsum(const float* as, float* ca,
-                                             float* red, int Wp, int tid) {
+// Inclusive cumsum of the chunk's a (a_at(i) for rows i in [0, Wp)) into
+// ca, by every thread: a run of `per` rows each, a shuffle scan within
+// each warp, and the warp totals across them.  Ends before the block's
+// barrier that publishes ca.
+template <class At>
+__device__ __forceinline__ void chunk_cumsum(At a_at, float* ca, float* red,
+                                             int Wp, int tid) {
   const int per = (Wp + kTcThreads - 1) / kTcThreads;
   const int lo = tid * per, hi = min(lo + per, Wp);
   const int lane = tid & 31, warp = tid >> 5;
   float run = 0.0f;
-  for (int i = lo; i < hi; ++i) run += as[i];
+  for (int i = lo; i < hi; ++i) run += a_at(i);
   float incl = run;
 #pragma unroll
   for (int off = 1; off < 32; off <<= 1) {
@@ -616,7 +676,7 @@ __device__ __forceinline__ void chunk_cumsum(const float* as, float* ca,
   float before = incl - run;
   for (int w = 0; w < warp; ++w) before += red[w];
   for (int i = lo; i < hi; ++i) {
-    before += as[i];
+    before += a_at(i);
     ca[i] = before;
   }
 }
@@ -665,9 +725,11 @@ gla_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   auto issue = [&](int ic, int iq, int ik, int ib) {
     const long long t0 = static_cast<long long>(ic) * W;
     const uint32_t st = base + ib * L::STAGE;
-    if (ik == 0) load_rows<DK>(st, qb, dk, t0, iq * kTile, W, n_t, tid);
-    load_rows<DK>(st + L::Q_BYTES, kb, dk, t0, ik * kTile, W, n_t, tid);
-    load_rows<DV>(st + 2 * L::Q_BYTES, vb, dv, t0, ik * kTile, W, n_t, tid);
+    if (ik == 0)
+      load_rows<DK>(st, qb, dk, dk, t0, iq * kTile, W, n_t, tid);
+    load_rows<DK>(st + L::Q_BYTES, kb, dk, dk, t0, ik * kTile, W, n_t, tid);
+    load_rows<DV>(st + 2 * L::Q_BYTES, vb, dv, dv, t0, ik * kTile, W, n_t,
+                  tid);
     if (iq == 0 && ik == 0) {
       const uint32_t as = smem_addr(a_s + ib * Wp);
       for (int r = tid; r < Wp; r += kTcThreads) {
@@ -714,7 +776,8 @@ gla_fwd_bf16(const __nv_bfloat16* __restrict__ q,
     const int r_lo = qs * kTile + 16 * warp + g;   // chunk rows r_lo, +8
 
     if (qs == 0 && ks == 0) {
-      chunk_cumsum(a_s + b * Wp, ca, red, Wp, tid);
+      const float* as = a_s + b * Wp;
+      chunk_cumsum([as](int i) { return as[i]; }, ca, red, Wp, tid);
       __syncthreads();
       tot = ca[W - 1];
     }
@@ -963,6 +1026,553 @@ gla_fwd_bf16(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 heads wider than 128: tensor cores, dv split across blocks.
+// ---------------------------------------------------------------------------
+
+constexpr int kWideDvs = 64;                 // dv columns per wide block
+constexpr int kPiece = kTile * kTile * 2;    // one [64][64] bf16 piece
+
+// Byte offset of 16-byte chunk ch (0..7) of row r in a 128-byte-row tile
+// stored with the 128-byte swizzle that wgmma's SWIZZLE_128B reads: chunk
+// ch of row r sits at chunk ch ^ (r & 7).  Tiles start 1024-byte aligned.
+__device__ __forceinline__ uint32_t swz(int r, int ch) {
+  return static_cast<uint32_t>(r * 128 + ((ch ^ (r & 7)) << 4));
+}
+
+// wgmma descriptor of a K-major operand in a swizzled tile: 128-byte rows,
+// 8-row groups 1024 bytes apart, 128-byte swizzle.  A k-step (16 bf16 or 8
+// TF32 columns) advances the address by 32 bytes.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// cp.async and st.shared write shared memory through the generic proxy;
+// wgmma reads it through the async proxy.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Keeps the compiler from moving an in-flight accumulator.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// The warpgroup's 64 x 64 f32 accumulator d: d[4 j + e] is the m16n8 C
+// fragment e of 8-column tile j of the warp's 16 rows.
+//
+// d += A (64 x 16) B^T (16 x 64), A and B K-major bf16 in shared memory.
+__device__ __forceinline__ void wgmma_64x64x16(float (&d)[32], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d += A (64 x 8) B^T (8 x 64), A TF32 from registers (the warp's m16n8k8
+// A fragment of its 16 rows), B K-major TF32 in shared memory.
+__device__ __forceinline__ void wgmma_64x64x8_tf32(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// x = hi + lo, both TF32 operands: hi is x rounded to TF32, lo the rest
+// (x - hi is exact in f32), which the tensor core truncates to TF32 (it
+// ignores a TF32 operand's 13 low bits).  Against an operand exact in
+// TF32 (bf16 q or v), hi b + lo b misses x b by at most about 2^-21 |x b|.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// The m16n8k8 A fragment of an 8-key group, keys permuted (slot t <-> key
+// 2 t, slot t + 4 <-> key 2 t + 1), from f32 values at (row g, key 2t),
+// (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1), split into two TF32 parts.
+__device__ __forceinline__ void split_frag(float g0, float g1, float g8_0,
+                                           float g8_1, uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+  split_tf32(g0, hi[0], lo[0]);
+  split_tf32(g8_0, hi[1], lo[1]);
+  split_tf32(g1, hi[2], lo[2]);
+  split_tf32(g8_1, hi[3], lo[3]);
+}
+
+// Shared memory of gla_fwd_wide_bf16<64>, in bytes from a 1024-byte
+// aligned base (1,024 more are allocated to align it): two stages of a Q
+// and a K piece (swizzled [64][64] bf16, 16 KB a stage); V^T of the key
+// tile as TF32, swizzled, keys permuted as the A fragments' (two [64][32]
+// halves of 8 KB); two V tiles [64][72] bf16; S as row pairs float2
+// [DKP / 2][68]; n [DKP]; four warp totals; ca [Wp] f32.  DKP is dk and
+// Wp the chunk, each rounded up to 64.
+struct WideSmem {
+  static constexpr int STAGE = 2 * kPiece;
+  static constexpr int VT_OFF = 2 * STAGE;
+  static constexpr int VSTR = kWideDvs + 8;
+  static constexpr int SSTR = kWideDvs + 4;
+  static constexpr int V_OFF = VT_OFF + kWideDvs * kTile * 4;
+  static constexpr int V_BYTES = kTile * VSTR * 2;
+  static constexpr int S_OFF = V_OFF + 2 * V_BYTES;
+  __host__ __device__ static int n_off(int dkp) {
+    return S_OFF + dkp / 2 * SSTR * 8;
+  }
+  __host__ __device__ static int red_off(int dkp) {
+    return n_off(dkp) + dkp * 4;
+  }
+  __host__ __device__ static int ca_off(int dkp) { return red_off(dkp) + 16; }
+  static int bytes(int dkp, int Wp) { return 1024 + ca_off(dkp) + 4 * Wp; }
+};
+
+// Chunk rows [r0, r0 + 64) of a [n_t, ld] bf16 matrix, columns [col0,
+// col0 + 64), into the swizzled piece at `dst`; rows at or past W or n_t
+// and columns at or past ld are zero-filled.
+__device__ __forceinline__ void load_piece(uint32_t dst,
+                                           const __nv_bfloat16* src, int ld,
+                                           int col0, long long t0, int r0,
+                                           int W, int n_t, int tid) {
+#pragma unroll
+  for (int i = 0; i < kTile * 8 / kTcThreads; ++i) {
+    const int c = tid + i * kTcThreads;
+    const int r = c >> 3, ch = c & 7;
+    const long long t = t0 + r0 + r;
+    const int col = col0 + ch * 8;
+    const bool in = r0 + r < W && t < n_t && col < ld;
+    cp_async16(dst + swz(r, ch), in ? src + t * ld + col : src, in ? 16 : 0);
+  }
+}
+
+// V^T of a key tile (V: [64 keys][72] bf16 at `v_src`) into the TF32
+// tile at `vt`: row c (dv column), slot s of 64, slot 8 G + t holding key
+// 8 G + 2 t (t < 4) or 8 G + 2 (t - 4) + 1; slots 32 a .. 32 a + 31 in
+// half a (8 KB), each half a K-major [64][32] tile with the 128-byte
+// swizzle.  Ends before the proxy fence and barrier that publish it.
+__device__ __forceinline__ void transpose_v(unsigned char* vt,
+                                            const __nv_bfloat16* v_src,
+                                            int tid) {
+#pragma unroll
+  for (int i = 0; i < kWideDvs * 8 / kTcThreads; ++i) {
+    const int task = tid + i * kTcThreads;
+    const int c = task & (kWideDvs - 1), grp = task / kWideDvs;
+    float x[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      x[j] = __bfloat162float(v_src[(8 * grp + j) * (kWideDvs + 8) + c]);
+    unsigned char* half = vt + (grp >> 2) * (kWideDvs * 128);
+    const int ch = 2 * (grp & 3);
+    *reinterpret_cast<float4*>(half + swz(c, ch)) =
+        make_float4(x[0], x[2], x[4], x[6]);
+    *reinterpret_cast<float4*>(half + swz(c, ch + 1)) =
+        make_float4(x[1], x[3], x[5], x[7]);
+  }
+}
+
+// wgmma descriptor of k-step j (slots 8 j .. 8 j + 7) of the V^T tile.
+__device__ __forceinline__ uint64_t vt_desc(uint32_t vt, int j) {
+  return sw128_desc(vt + (j >> 2) * (kWideDvs * 128) + (j & 3) * 32);
+}
+
+// Templated on its slice width (only kWideDvs) so that its symbol names
+// it, as the other kernels' symbols name their widths.
+template <int DVS>
+__global__ void __launch_bounds__(kTcThreads, 1)
+gla_fwd_wide_bf16(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
+                  const float* __restrict__ a, __nv_bfloat16* __restrict__ y,
+                  float* __restrict__ S_out, float* __restrict__ n_out,
+                  int n_t, int dk, int dv, int W, int n_slices,
+                  int normalize) {
+  static_assert(DVS == kWideDvs, "the wgmma tiles are 64 columns wide");
+  using L = WideSmem;
+  constexpr int NV = DVS / 8;   // n-tiles of y and of the state slice
+  constexpr int SSTR = L::SSTR;
+  extern __shared__ __align__(1024) unsigned char smem_wide[];
+  const uint32_t raw = smem_addr(smem_wide);
+  const uint32_t pad = ((raw + 1023u) & ~1023u) - raw;
+  unsigned char* sm = smem_wide + pad;
+  const uint32_t base = raw + pad;
+  const uint32_t vt_s = base + L::VT_OFF;
+  const int n_pc = (dk + kTile - 1) / kTile;   // 64-column pieces of dk
+  const int dkp = n_pc * kTile;
+  const int n_sub = (W + kTile - 1) / kTile;
+  const int Wp = n_sub * kTile;
+  float2* Sp = reinterpret_cast<float2*>(sm + L::S_OFF);
+  float* ns = reinterpret_cast<float*>(sm + L::n_off(dkp));
+  float* red = reinterpret_cast<float*>(sm + L::red_off(dkp));
+  float* ca = reinterpret_cast<float*>(sm + L::ca_off(dkp));   // [Wp]
+
+  const int bh = blockIdx.x / n_slices;
+  const int c0 = (blockIdx.x % n_slices) * DVS;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;   // accumulator row / column pair
+  const long long head = static_cast<long long>(bh) * n_t;
+  const __nv_bfloat16* qb = q + head * dk;
+  const __nv_bfloat16* kb = k + head * dk;
+  const __nv_bfloat16* vb = v + head * dv;
+  const float* ab = a + head;
+  __nv_bfloat16* yb = y + head * dv;
+
+  for (int e = tid; e < dkp / 2 * SSTR; e += kTcThreads)
+    Sp[e] = make_float2(0.0f, 0.0f);
+  for (int e = tid; e < dkp; e += kTcThreads) ns[e] = 0.0f;
+
+  // A step: (chunk, 64-row query sub-tile, key tile at or before it,
+  // 64-column piece of dk), and the step after it.
+  struct Step {
+    int c, qs, ks, pc;
+  };
+  auto after = [&](Step t) {
+    if (++t.pc == n_pc) {
+      t.pc = 0;
+      if (++t.ks > t.qs) {
+        t.ks = 0;
+        if (++t.qs == n_sub) {
+          t.qs = 0;
+          ++t.c;
+        }
+      }
+    }
+    return t;
+  };
+  // The copies of step t into stage ib: its Q piece (sub-tile qs) and K
+  // piece (key tile ks), and at a key tile's first piece its V tile (this
+  // block's dv columns) into V buffer iv.
+  auto issue = [&](Step t, int ib, int iv) {
+    const long long t0 = static_cast<long long>(t.c) * W;
+    const uint32_t st = base + ib * L::STAGE;
+    load_piece(st, qb, dk, t.pc * kTile, t0, t.qs * kTile, W, n_t, tid);
+    load_piece(st + kPiece, kb, dk, t.pc * kTile, t0, t.ks * kTile, W, n_t,
+               tid);
+    if (t.pc == 0)
+      load_rows<kWideDvs>(base + L::V_OFF + iv * L::V_BYTES, vb + c0, dv,
+                          dv - c0, t0, t.ks * kTile, W, n_t, tid);
+    cp_async_commit();
+  };
+
+  const int n_chunks = (n_t + W - 1) / W;
+  float acc[32];   // y of the sub-tile's 64 rows (wgmma accumulator layout)
+  float sc[32];    // the sub-tile's scores against the key tile
+  float den[2];    // this lane's share of den for rows r_lo, r_lo + 8
+  float ca_r[2];   // ca of those rows
+  float tot = 0.0f;   // ca[W - 1] of the chunk
+  float gt = 1.0f;    // e^{tot}
+
+  Step cur = {0, 0, 0, 0};
+  issue(cur, 0, 0);
+  int b = 0, vbuf = 0;
+  for (;;) {
+    const Step nxt = after(cur);
+    const bool more = nxt.c < n_chunks;
+    const int nvbuf = nxt.pc == 0 ? vbuf ^ 1 : vbuf;
+    if (more) {
+      issue(nxt, b ^ 1, nvbuf);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_proxy_async();
+    __syncthreads();
+    const int c = cur.c, qs = cur.qs, ks = cur.ks, pc = cur.pc;
+    const uint32_t q_s = base + b * L::STAGE;
+    const uint32_t k_s = q_s + kPiece;
+    const bool last = qs == n_sub - 1;   // the state update rides this
+    const bool diag = ks == qs;
+    const bool inter = ks == 0;          // q S_in rides the first key tile
+    const bool end = pc == n_pc - 1;     // the scores are whole
+    const int r_lo = qs * kTile + 16 * warp + g;   // chunk rows r_lo, +8
+
+    if (qs == 0 && inter && pc == 0) {
+      const long long t0 = static_cast<long long>(c) * W;
+      chunk_cumsum([&](int i) { return i < W && t0 + i < n_t ? ab[t0 + i]
+                                                           : 0.0f; },
+                   ca, red, Wp, tid);
+      __syncthreads();
+      tot = ca[W - 1];
+      gt = __expf(tot);
+    }
+    if (pc == 0) {   // V^T of this key tile, for P V and the state update
+      transpose_v(sm + L::VT_OFF, reinterpret_cast<const __nv_bfloat16*>(
+                                      sm + L::V_OFF + vbuf * L::V_BYTES),
+                  tid);
+      fence_proxy_async();
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = 0.0f;
+    }
+    if (inter && pc == 0) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+      den[0] = den[1] = 0.0f;
+      ca_r[0] = ca[r_lo];
+      ca_r[1] = ca[r_lo + 8];
+    }
+
+    // Scores over this piece's 64 columns of dk: four wgmma k-steps, in
+    // flight while q S_in runs.
+    pin(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)
+      wgmma_64x64x16(sc, sw128_desc(q_s + 32 * kk), sw128_desc(k_s + 32 * kk));
+    wgmma_commit();
+
+    if (inter) {
+      // q_i S_in over this piece's rows of S, S_in split into two TF32
+      // parts; A from Q's bf16 fragments (k permuted within each group of
+      // 8), B from S's row pairs.  q_i n_in on the CUDA cores.
+      uint32_t qf[kTile / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk)
+        ldmatrix_x4(qf[kk], q_s + swz(16 * warp + (lane & 15),
+                                      2 * kk + (lane >> 4)));
+#pragma unroll
+      for (int k8 = 0; k8 < kTile / 8; ++k8) {
+        const uint32_t rg = qf[k8 >> 1][(k8 & 1) * 2];       // row g
+        const uint32_t rg8 = qf[k8 >> 1][(k8 & 1) * 2 + 1];  // row g + 8
+        const uint32_t af[4] = {lo_bits(rg), lo_bits(rg8), hi_bits(rg),
+                                hi_bits(rg8)};
+#pragma unroll
+        for (int n = 0; n < NV; ++n) {
+          const float2 sv = Sp[(32 * pc + 4 * k8 + tq) * SSTR + 8 * n + g];
+          uint32_t h0, l0, h1, l1;
+          split_tf32(sv.x, h0, l0);
+          split_tf32(sv.y, h1, l1);
+          float d[4] = {acc[4 * n], acc[4 * n + 1], acc[4 * n + 2],
+                        acc[4 * n + 3]};
+          mma_tf32(d, af, h0, h1);
+          mma_tf32(d, af, l0, l1);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[4 * n + e] = d[e];
+        }
+      }
+      if (normalize) {
+        float d0 = 0.0f, d1 = 0.0f;
+#pragma unroll
+        for (int kk = 0; kk < kTile / 16; ++kk) {
+          const float* np_ = ns + kTile * pc + 16 * kk + 2 * tq;
+          const float2 n0 = *reinterpret_cast<const float2*>(np_);
+          const float2 n1 = *reinterpret_cast<const float2*>(np_ + 8);
+          d0 += lo_f(qf[kk][0]) * n0.x + hi_f(qf[kk][0]) * n0.y +
+                lo_f(qf[kk][2]) * n1.x + hi_f(qf[kk][2]) * n1.y;
+          d1 += lo_f(qf[kk][1]) * n0.x + hi_f(qf[kk][1]) * n0.y +
+                lo_f(qf[kk][3]) * n1.x + hi_f(qf[kk][3]) * n1.y;
+        }
+        den[0] += d0;
+        den[1] += d1;
+      }
+    }
+    wgmma_wait_all();
+    pin(sc);
+
+    if (last) {
+      // This piece's 64 rows of the state: S = [e^{tot}] S + (K o w)^T V
+      // over this key tile, on wgmma with K o w split into two TF32 parts
+      // as A (from ldmatrix.trans fragments of K) and V^T as B; n from the
+      // f32 K o w.  At the first key tile every warp must have read these
+      // rows of S_in and n_in first.
+      if (inter) __syncthreads();
+      uint32_t kh[kTile / 8][4], kl[kTile / 8][4];
+      float nsum[2] = {0.0f, 0.0f};
+      const int j0 = ks * kTile;
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        const float2 ca_a =
+            *reinterpret_cast<const float2*>(ca + j0 + 16 * kk + 2 * tq);
+        const float2 ca_b =
+            *reinterpret_cast<const float2*>(ca + j0 + 16 * kk + 8 + 2 * tq);
+        const float w0 = __expf(tot - ca_a.x), w1 = __expf(tot - ca_a.y);
+        const float w2 = __expf(tot - ca_b.x), w3 = __expf(tot - ca_b.y);
+        // kr[0]: keys 2t, 2t+1 of the group at dk row g; kr[1]: row g + 8;
+        // kr[2], kr[3]: keys 8 + 2t, 9 + 2t.
+        uint32_t kr[4];
+        ldmatrix_x4_trans(kr, k_s + swz(16 * kk + (lane & 7) +
+                                        ((lane >> 4) << 3),
+                                        2 * warp + ((lane >> 3) & 1)));
+        const float x00 = lo_f(kr[0]) * w0, x01 = hi_f(kr[0]) * w1;
+        const float x10 = lo_f(kr[1]) * w0, x11 = hi_f(kr[1]) * w1;
+        const float x20 = lo_f(kr[2]) * w2, x21 = hi_f(kr[2]) * w3;
+        const float x30 = lo_f(kr[3]) * w2, x31 = hi_f(kr[3]) * w3;
+        split_frag(x00, x01, x10, x11, kh[2 * kk], kl[2 * kk]);
+        split_frag(x20, x21, x30, x31, kh[2 * kk + 1], kl[2 * kk + 1]);
+        nsum[0] += (x00 + x01) + (x20 + x21);
+        nsum[1] += (x10 + x11) + (x30 + x31);
+      }
+      float part[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) part[i] = 0.0f;
+      pin(part);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kTile / 8; ++j) {
+        wgmma_64x64x8_tf32(part, kh[j], vt_desc(vt_s, j));
+        wgmma_64x64x8_tf32(part, kl[j], vt_desc(vt_s, j));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(part);
+      // Rows r0 and r0 + 8 sit in row pairs r0 / 2 and r0 / 2 + 4, at the
+      // same half.  All 32 elements are loaded before any is stored, so
+      // the loads need not wait on the stores.
+      const int r0 = kTile * pc + 16 * warp + g;
+      float* s0 = reinterpret_cast<float*>(Sp + (r0 >> 1) * SSTR + 2 * tq) +
+                  (r0 & 1);
+      float old[32];
+#pragma unroll
+      for (int n = 0; n < NV; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          old[4 * n + e] = s0[2 * (4 * (e >> 1) * SSTR + 8 * n + (e & 1))];
+      const float scale = inter ? gt : 1.0f;
+#pragma unroll
+      for (int n = 0; n < NV; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s0[2 * (4 * (e >> 1) * SSTR + 8 * n + (e & 1))] =
+              scale * old[4 * n + e] + part[4 * n + e];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float sum = nsum[r] + __shfl_xor_sync(0xffffffffu, nsum[r], 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        float* np_ = ns + r0 + 8 * r;
+        if (tq == 0) *np_ = (inter ? gt * *np_ : *np_) + sum;
+      }
+    }
+
+    if (end) {
+      if (inter) {   // the inter-chunk term is whole: scale by e^{ca_i}
+        const float e0 = __expf(ca_r[0]), e1 = __expf(ca_r[1]);
+#pragma unroll
+        for (int n = 0; n < NV; ++n) {
+          acc[4 * n] *= e0;
+          acc[4 * n + 1] *= e0;
+          acc[4 * n + 2] *= e1;
+          acc[4 * n + 3] *= e1;
+        }
+        den[0] *= e0;
+        den[1] *= e1;
+      }
+      // P = scores * e^{ca_i - ca_j}, zero after the row on the diagonal,
+      // split into two TF32 parts as the A fragments of acc += P V (keys
+      // permuted as in V^T).
+      const int j0 = ks * kTile;
+      uint32_t ph[kTile / 8][4], pl[kTile / 8][4];
+#pragma unroll
+      for (int j = 0; j < kTile / 8; ++j) {
+        const float2 cj =
+            *reinterpret_cast<const float2*>(ca + j0 + 8 * j + 2 * tq);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int il = 16 * warp + g + 8 * (e >> 1);
+          const int jl = 8 * j + 2 * tq + (e & 1);
+          const float p = diag && jl > il ? 0.0f :
+              sc[4 * j + e] * __expf(ca_r[e >> 1] - ((e & 1) ? cj.y : cj.x));
+          sc[4 * j + e] = p;
+          den[e >> 1] += p;
+        }
+        split_frag(sc[4 * j], sc[4 * j + 1], sc[4 * j + 2], sc[4 * j + 3],
+                   ph[j], pl[j]);
+      }
+      pin(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kTile / 8; ++j) {
+        wgmma_64x64x8_tf32(acc, ph[j], vt_desc(vt_s, j));
+        wgmma_64x64x8_tf32(acc, pl[j], vt_desc(vt_s, j));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(acc);
+
+      if (diag) {   // the sub-tile's last key tile: y
+        float inv[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float d = den[r] + __shfl_xor_sync(0xffffffffu, den[r], 1);
+          d += __shfl_xor_sync(0xffffffffu, d, 2);
+          inv[r] = normalize ? 1.0f / fmaxf(fabsf(d), 1.0f) : 1.0f;
+        }
+        const long long t0 = static_cast<long long>(c) * W;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = r_lo + 8 * r;
+          const long long t = t0 + row;
+          if (row >= W || t >= n_t) continue;
+#pragma unroll
+          for (int n = 0; n < NV; ++n) {
+            const int col = c0 + 8 * n + 2 * tq;
+            if (col < dv)
+              *reinterpret_cast<__nv_bfloat162*>(yb + t * dv + col) =
+                  __floats2bfloat162_rn(acc[4 * n + 2 * r] * inv[r],
+                                        acc[4 * n + 2 * r + 1] * inv[r]);
+          }
+        }
+      }
+    }
+    __syncthreads();   // this stage, the V buffer and V^T are refilled next
+    if (!more) break;
+    cur = nxt;
+    b ^= 1;
+    vbuf = nvbuf;
+  }
+
+  float* Sb = S_out + static_cast<long long>(bh) * dk * dv;
+  for (int e = tid; e < dk * DVS; e += kTcThreads) {
+    const int r = e / DVS, col = e - r * DVS;
+    if (c0 + col < dv) {
+      const float2 p = Sp[(r >> 1) * SSTR + col];
+      Sb[static_cast<long long>(r) * dv + c0 + col] = (r & 1) ? p.y : p.x;
+    }
+  }
+  if (c0 == 0)
+    for (int r = tid; r < dk; r += kTcThreads)
+      n_out[static_cast<long long>(bh) * dk + r] = ns[r];
+}
+
+// ---------------------------------------------------------------------------
 // Launch.
 // ---------------------------------------------------------------------------
 
@@ -1009,9 +1619,36 @@ int launch_tc(const void* q, const void* k, const void* v, const float* a,
   return int(cudaGetLastError());
 }
 
-// bf16 with dk, dv multiples of 16 up to 128 and 16-byte aligned q, k, v
-// (cp.async) take the tensor cores at widths rounded up to 64 or 128;
-// everything else takes gla_fwd on the CUDA cores.
+int launch_wide(const void* q, const void* k, const void* v, const float* a,
+                void* y, float* S, float* n, int bh, int n_t, int dk, int dv,
+                int W, int normalize, cudaStream_t st) {
+  const int bytes = WideSmem::bytes((dk + kTile - 1) / kTile * kTile,
+                                    (W + kTile - 1) / kTile * kTile);
+  static int configured = 0;  // the largest dynamic shared memory set so far
+  if (bytes > configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gla_fwd_wide_bf16<kWideDvs>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return int(err);
+    configured = bytes;
+  }
+  const int n_slices = (dv + kWideDvs - 1) / kWideDvs;
+  const long long blocks = static_cast<long long>(bh) * n_slices;
+  if (blocks > 0x7fffffffLL) return int(cudaErrorInvalidValue);
+  gla_fwd_wide_bf16<kWideDvs><<<static_cast<unsigned>(blocks), kTcThreads,
+                                bytes, st>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), a,
+      static_cast<__nv_bfloat16*>(y), S, n, n_t, dk, dv, W, n_slices,
+      normalize);
+  return int(cudaGetLastError());
+}
+
+// bf16 with dk, dv multiples of 16 and 16-byte aligned q, k, v (cp.async)
+// take the tensor cores: up to 128 wide at widths rounded up to 64 or 128,
+// wider (dk up to 512) in dv slices of kWideDvs; everything else takes
+// gla_fwd on the CUDA cores.
 int dispatch(const void* q, const void* k, const void* v, const float* a,
              void* y, float* S, float* n, int is_bf16, int bh, int n_t,
              int dk, int dv, int W, int normalize, cudaStream_t st) {
@@ -1019,7 +1656,11 @@ int dispatch(const void* q, const void* k, const void* v, const float* a,
       ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
         reinterpret_cast<uintptr_t>(v)) & 15) == 0 &&
       (reinterpret_cast<uintptr_t>(y) & 3) == 0;
-  if (is_bf16 && aligned && dk <= 128 && dk % 16 == 0 && dv % 16 == 0 && dv <= 128) {
+  const bool tc = is_bf16 && aligned && dk % 16 == 0 && dv % 16 == 0;
+  if (tc && (dk > 128 || dv > 128))
+    return launch_wide(q, k, v, a, y, S, n, bh, n_t, dk, dv, W, normalize,
+                       st);
+  if (tc) {
     if (dk <= 64 && dv <= 64)
       return launch_tc<64, 64>(q, k, v, a, y, S, n, bh, n_t, dk, dv, W,
                                normalize, st);

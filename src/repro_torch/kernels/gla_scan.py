@@ -11,8 +11,9 @@ evaluated in chunks of ``chunk`` steps.  Layout is head-major: q/k
 ``[BH, T, dk]``, v ``[BH, T, dv]``, log_decay f32 ``[BH, T]``.  Unlike
 the TPU kernel, ``T`` need not be a multiple of the chunk: the ragged
 last chunk is padded as ``chunked_gla`` pads.  Heads up to ``MAX_DK``
-wide: bf16 heads of up to 128 take the tensor cores, wider ones and f32
-the CUDA cores (``dispatch`` in ``csrc/gla_scan.cu``, by dtype and shape
+wide: bf16 heads whose widths are multiples of 16 take the tensor cores
+(up to 128 one kernel, wider another), f32 and other bf16 widths the CUDA
+cores (``dispatch`` in ``csrc/gla_scan.cu``, by dtype, shape and alignment
 alone).
 
 A tensor on the CPU goes to the plain version
@@ -31,7 +32,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ref_gla
 
-MAX_DK = 512      # xLSTM's mLSTM heads, on the CUDA cores
+MAX_DK = 512      # xLSTM's mLSTM heads
 MAX_CHUNK = 4096  # the chunk's cumsum and weights live in shared memory
 
 launches = 0

@@ -288,9 +288,10 @@ def test_chip_smoke_counts_hmma_per_instantiation(monkeypatch):
     rows = chip_smoke.tensor_core_use(Build, PTXAS)
     assert calls == [["/cuda/bin/cuobjdump", "-sass",
                       "/build/libflash_attention.so"]]
-    assert rows == {"flash_fwd_bf16<64>": {"hmma": 2, "registers": 128,
+    assert rows == {"flash_fwd_bf16<64>": {"hmma": 2, "hgmma": 0,
+                                           "registers": 128,
                                            "spill_bytes": 12},
-                    "flash_fwd_f32<64>": {"hmma": 0}}
+                    "flash_fwd_f32<64>": {"hmma": 0, "hgmma": 0}}
     Done.stdout = SASS.replace("HMMA", "FFMA")
     with pytest.raises(SystemExit):
         chip_smoke.tensor_core_use(Build, PTXAS)

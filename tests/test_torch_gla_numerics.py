@@ -1,7 +1,8 @@
-"""Rounding points of the bf16 tensor-core GLA kernel, checked on the CPU.
+"""Rounding points of the bf16 tensor-core GLA kernels, checked on the CPU.
 
-``csrc/gla_scan.cu``'s ``gla_fwd_bf16`` cannot run here, so this file
-emulates where it rounds and holds the result against the JAX package's
+``csrc/gla_scan.cu``'s ``gla_fwd_bf16`` (heads up to 128) and
+``gla_fwd_wide_bf16`` (wider heads) cannot run here, so this file
+emulates where they round and holds the result against the JAX package's
 reference (``repro.kernels.ref.ref_gla``, the step recurrence) at the
 bf16 ``gla_y`` / ``gla_state`` rule of tests/test_kernel_oracle.py
 (``atol + ulps * ulp_bf16(|want|)``), the rule ``chip_smoke.py`` holds
@@ -22,7 +23,10 @@ version of the port) follows the kernel:
   accumulation; ``n`` from the f32 ``K o w``;
 * ``y = acc / max(|den|, 1)`` (when normalizing) rounded to bf16.
 
-``DESIGN`` is the kernel's choice of rounding for each product.  Each
+``DESIGN`` is ``gla_fwd_bf16``'s choice of rounding for each product,
+``WIDE`` ``gla_fwd_wide_bf16``'s (every TF32 operand split into two TF32
+parts, ``tf32x2``: on the mLSTM's draws one TF32 rounding misses the
+bf16 y allowance at the wide heads).  Each
 case records its worst error as a fraction of the allowance, for the
 design and with each product's rounding switched to the other choice
 (``-s`` prints them).  With every rounding switched off and f32 inputs,
@@ -48,24 +52,40 @@ from tests.test_torch_flash_numerics import round_bf16, round_tf32
 jax.config.update("jax_platform_name", "cpu")
 
 TILE = 64
-ROUND = {"bf16": round_bf16, "tf32": round_tf32, "f32": lambda x: x}
-# The kernel's operand rounding: P, S_in and K o w each enter a TF32
+
+
+def round_tf32x2(x: torch.Tensor) -> torch.Tensor:
+    """x as the sum of two TF32 parts (``split_tf32`` in csrc/gla_scan.cu):
+    hi = x rounded to TF32, lo = the rest as the tensor core reads it,
+    truncated to TF32; hi + lo is exact in f32."""
+    hi = round_tf32(x)
+    lo = (x - hi).contiguous().view(torch.int32) & ~0x1FFF
+    return hi + lo.view(torch.float32)
+
+
+ROUND = {"bf16": round_bf16, "tf32": round_tf32, "tf32x2": round_tf32x2,
+         "f32": lambda x: x}
+# gla_fwd_bf16's operand rounding: P, S_in and K o w each enter a TF32
 # m16n8k8 product (cvt.rna); q and V in bf16 are exact in TF32.  Each
 # in bf16 (m16n8k16) would halve its product's tensor time, but misses
-# the bf16 y allowance or comes near it (the last test).
+# the bf16 y allowance or comes near it (test_bf16_operands_miss_...).
 DESIGN = {"p": "tf32", "s_in": "tf32", "kw": "tf32"}
+# gla_fwd_wide_bf16's: each of them as two TF32 parts, two m16n8k8
+# products (test_one_tf32_rounding_misses_the_tolerance_at_wide_mlstm).
+WIDE = {"p": "tf32x2", "s_in": "tf32x2", "kw": "tf32x2"}
 OTHER = {"bf16": "tf32", "tf32": "bf16"}
 F32 = {"p": "f32", "s_in": "f32", "kw": "f32"}
 
 
 def kernel_design(dtype: torch.dtype, dk: int, dv: int) -> dict:
     """The rounding of the kernel that ``dispatch`` in csrc/gla_scan.cu
-    picks for a call: the tensor-core kernel's (``DESIGN``) for bf16 at
-    its shapes, none for the CUDA-core kernel (f32, other bf16 shapes
-    and every head wider than 128), whose products are f32 FMAs."""
-    if dtype == torch.bfloat16 and chip_smoke.gla_tensor_cores(dk, dv):
-        return DESIGN
-    return F32
+    picks for a call (``chip_smoke.gla_kernel``): ``DESIGN`` for
+    ``gla_fwd_bf16``, ``WIDE`` for ``gla_fwd_wide_bf16``, none for the
+    CUDA-core ``gla_fwd`` (f32 and bf16 widths that are not multiples of
+    16), whose products are f32 FMAs."""
+    return {"gla_fwd_bf16": DESIGN, "gla_fwd_wide_bf16": WIDE,
+            "gla_fwd": F32}[chip_smoke.gla_kernel(dtype == torch.bfloat16,
+                                                  dk, dv)]
 
 
 def emulate_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -158,6 +178,22 @@ def inputs(BH, T, dk, dv, shift, seed, dtype=np.float32):
     else:
         a = -np.logaddexp(0.0, rng.standard_normal((BH, T)) + shift)
     q, k, v = (jnp.asarray(x).astype(dtype) for x in (q, k, v))
+    return q, k, v, jnp.asarray(a.astype(np.float32))
+
+
+def mlstm_inputs(BH, T, dk, dv, seed):
+    """bf16 q, k, v and f32 log-decays drawn as ``chip_smoke.gla_inputs``
+    draws them for the mLSTM: log-decays logsigmoid(N(3, 1)), k N /
+    sqrt(dk) times exp(clip(2 N, -8, 8)) per step."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((BH, T, dk)).astype(np.float32)
+    k = rng.standard_normal((BH, T, dk)).astype(np.float32)
+    v = rng.standard_normal((BH, T, dv)).astype(np.float32)
+    a = rng.standard_normal((BH, T)).astype(np.float32)
+    gate = np.clip(2.0 * rng.standard_normal((BH, T, 1)), -8.0, 8.0)
+    k = k / np.sqrt(dk) * np.exp(gate).astype(np.float32)
+    a = -np.logaddexp(0.0, -(a + 3.0))
+    q, k, v = (jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v))
     return q, k, v, jnp.asarray(a.astype(np.float32))
 
 
@@ -256,6 +292,61 @@ def test_bf16_operands_miss_the_tolerance_where_tf32_meets_it():
     assert max(fr["design"]) < 0.5, fr
 
 
+# (BH, T, dk, dv, chunk): the wide kernel's heads, xLSTM's mLSTM at
+# fleet-xlstm's dk = dv = 256 (W=128) and xlstm-350m's 512 (W=256).
+WIDE_CASES = [pytest.param(2, 512, 256, 256, 128, id="mlstm_d256_W128"),
+              pytest.param(2, 512, 512, 512, 256, id="mlstm_d512_W256")]
+
+
+@pytest.mark.parametrize("BH,T,dk,dv,chunk", WIDE_CASES)
+def test_wide_design_meets_oracle_tol(BH, T, dk, dv, chunk,
+                                      record_property):
+    """gla_fwd_wide_bf16's rounding on mLSTM draws, normalizing, at the
+    bf16 TOL against the step recurrence; gla_fwd_bf16's single TF32
+    rounding is printed beside it."""
+    assert kernel_design(torch.bfloat16, dk, dv) == WIDE
+    q, k, v, a = mlstm_inputs(BH, T, dk, dv, seed=T + chunk + dk + dv)
+    want = jref.ref_gla(q, k, v, a, normalize=True)
+    args = to_torch(q, k, v, a) + [chunk, True]
+    y, S, n = emulate_kernel(*args, WIDE)
+    assert_oracle_close("gla_y", y.to(torch.bfloat16).float().numpy(),
+                        want[0], jnp.bfloat16)
+    assert_oracle_close("gla_state", S.numpy(), want[1], jnp.bfloat16)
+    assert_oracle_close("gla_state", n.numpy(), want[2], jnp.bfloat16)
+    fr = {"wide": fractions(*args, WIDE, want),
+          "tf32": fractions(*args, DESIGN, want)}
+    for name, (fy, fs, fn) in fr.items():
+        record_property(f"y_over_tol_{name}", fy)
+        record_property(f"S_over_tol_{name}", fs)
+        record_property(f"n_over_tol_{name}", fn)
+    print(" ".join(f"{name}: y {fy:.4f} S {fs:.4f} n {fn:.4f};"
+                   for name, (fy, fs, fn) in fr.items()))
+    assert max(fr["wide"]) < 0.5, fr
+
+
+def test_one_tf32_rounding_misses_the_tolerance_at_wide_mlstm():
+    """Why the wide kernel splits P, S_in and K o w into two TF32 parts:
+    on mLSTM draws at dk = dv = 256 (8 heads, W=128, normalizing), one
+    TF32 rounding of all three reaches 2.6x the bf16 y allowance; with
+    the other two split, S_in or K o w at one rounding still misses it
+    and P at one rounding is past half of it (the kernels' rule for
+    their operand precision); split, all three meet it with the margin
+    of f32."""
+    q, k, v, a = mlstm_inputs(8, 512, 256, 256, seed=0)
+    want = jref.ref_gla(q, k, v, a, normalize=True)
+    args = to_torch(q, k, v, a) + [128, True]
+    fr = {"tf32": fractions(*args, DESIGN, want)[0],
+          "wide": fractions(*args, WIDE, want)[0]}
+    for keep in WIDE:   # one product left at one TF32 rounding
+        fr[f"{keep}_tf32"] = fractions(*args, dict(WIDE, **{keep: "tf32"}),
+                                       want)[0]
+    print(f"y over the bf16 tol: {fr}")
+    assert fr["tf32"] > 2.0, fr
+    assert fr["s_in_tf32"] > 1.0 and fr["kw_tf32"] > 1.0, fr
+    assert fr["p_tf32"] > 0.5, fr
+    assert fr["wide"] < 0.25, fr
+
+
 # ---------------------------------------------------------------------------
 # chip_smoke.py's side of the check (its CPU-testable helpers)
 # ---------------------------------------------------------------------------
@@ -271,9 +362,12 @@ def test_chip_smoke_bf16_gla_cases_reach_the_kernel_edges():
 
 
 def test_chip_smoke_gla_cases_reach_the_wide_kernel():
-    """Wide heads (128 < dk <= 512) on the CUDA-core kernel: at
-    xlstm-350m's prefill (bf16, normalize, mLSTM draws, W=256) and ragged
-    at dk = dv = 256 in both dtypes."""
+    """Wide heads (128 < dk <= 512): at xlstm-350m's prefill (bf16,
+    normalize, mLSTM draws, W=256), at fleet-xlstm's training shape (B=64
+    x 4 mLSTM heads of 256, T=512, W=128, benchmarks/fig_lm_fleet.py:
+    60-63) and ragged at dk = dv = 256 in both dtypes.  Every bf16 row
+    wider than 128 goes to gla_fwd_wide_bf16 (on mLSTM draws), f32 to the
+    CUDA cores, and no narrower row to the wide kernel."""
     wide = [c for c in chip_smoke.GLA_CASES if c[3] > 128]
     assert any(dk == dv == 512 and chunk == 256 and dt == "bf16" and norm
                and draw == "mlstm"
@@ -282,6 +376,20 @@ def test_chip_smoke_gla_cases_reach_the_wide_kernel():
         assert any(dk == dv == 256 and T % chunk and dt == dtype
                    for _, _, T, dk, dv, chunk, dt, *_ in wide)
     assert all(c[-1] in ("mamba2", "mlstm") for c in chip_smoke.GLA_CASES)
+    wide_bf16 = {c[0]: c for c in chip_smoke.GLA_CASES
+                 if c[6] == "bf16" and max(c[3], c[4]) > 128}
+    assert set(wide_bf16) == {"xlstm_350m_prefill_4x4_2048_512_W256",
+                              "bf16_dk256_ragged_8_300_256_W128",
+                              "fleet_xlstm_64x4_512_256_W128"}
+    assert wide_bf16["fleet_xlstm_64x4_512_256_W128"][1:6] == \
+        (64 * 4, 512, 256, 256, 128)
+    for _, _, _, dk, dv, _, dt, normalize, draw in wide_bf16.values():
+        assert chip_smoke.gla_kernel(True, dk, dv) == "gla_fwd_wide_bf16"
+        assert normalize and draw == "mlstm"
+    for _, _, _, dk, dv, _, dt, *_ in chip_smoke.GLA_CASES:
+        kernel = chip_smoke.gla_kernel(dt == "bf16", dk, dv)
+        assert (kernel == "gla_fwd_wide_bf16") == \
+            (dt == "bf16" and max(dk, dv) > 128 and dk % 16 == dv % 16 == 0)
 
 
 def test_chip_smoke_mlstm_draws_follow_the_mlstm():
@@ -301,12 +409,21 @@ def test_chip_smoke_mlstm_draws_follow_the_mlstm():
 
 @pytest.mark.parametrize("dk,dv,want", [
     (64, 64, True), (128, 64, True), (16, 128, True), (16, 40, False),
-    (8, 64, False), (144, 64, False), (256, 256, False), (512, 512, False)])
+    (8, 64, False), (144, 64, True), (256, 256, True), (512, 512, True),
+    (64, 256, True), (256, 40, False), (264, 256, False), (512, 8, False)])
 def test_chip_smoke_gla_route_by_shape(dk, dv, want):
+    """bf16 widths that are multiples of 16 take the tensor cores:
+    gla_fwd_bf16 up to 128, gla_fwd_wide_bf16 wider (either width);
+    every other width, and f32, the CUDA cores."""
     assert chip_smoke.gla_tensor_cores(dk, dv) is want
+    kernel = chip_smoke.gla_kernel(True, dk, dv)
+    wide = want and max(dk, dv) > 128
+    assert kernel == ("gla_fwd" if not want else "gla_fwd_wide_bf16"
+                      if wide else "gla_fwd_bf16")
     design = kernel_design(torch.bfloat16, dk, dv)
-    assert design == (DESIGN if want else F32)
+    assert design == (F32 if not want else WIDE if wide else DESIGN)
     assert kernel_design(torch.float32, dk, dv) == F32
+    assert chip_smoke.gla_kernel(False, dk, dv) == "gla_fwd"
 
 
 GLA_SASS = """
@@ -319,15 +436,24 @@ GLA_SASS = """
         Function : _ZN12_GLOBAL__N_17gla_fwdIfLi128EEEvPKT_S3_S3_PKfPS1_
         /*0010*/                   FFMA R1, R2, R3, R1 ;
 """
+WIDE_SASS = """
+        Function : _ZN12_GLOBAL__N_117gla_fwd_wide_bf16ILi64EEEvPK13__nv_bfloat16
+        /*0010*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], R24 ;
+        /*0020*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR8], R24 ;
+        /*0030*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;
+"""
 GLA_PTXAS = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_112gla_fwd_bf16ILi64ELi64EEEvPK13__nv_bfloat16' for 'sm_90a'
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 154 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117gla_fwd_wide_bf16ILi64EEEvPK13__nv_bfloat16' for 'sm_90a'
+    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 186 registers, used 1 barriers
 """
 
 
 def test_chip_smoke_counts_hmma_per_gla_instantiation(monkeypatch):
     class Done:
-        stdout = GLA_SASS
+        stdout = GLA_SASS + WIDE_SASS
 
     class Build:
         _nvcc = staticmethod(lambda: "/cuda/bin/nvcc")
@@ -339,12 +465,22 @@ def test_chip_smoke_counts_hmma_per_gla_instantiation(monkeypatch):
     rows = chip_smoke.tensor_core_use(Build, GLA_PTXAS, "gla_scan")
     assert calls == [["/cuda/bin/cuobjdump", "-sass",
                       "/build/libgla_scan.so"]]
-    assert rows == {"gla_fwd_bf16<64, 64>": {"hmma": 3, "registers": 154,
+    assert rows == {"gla_fwd_bf16<64, 64>": {"hmma": 3, "hgmma": 0,
+                                             "registers": 154,
                                              "spill_bytes": 0},
-                    "gla_fwd<bf16, 64>": {"hmma": 0},
-                    "gla_fwd<float, 128>": {"hmma": 0}}
-    # The CUDA-core bf16 instantiation needs none; the tensor-core one
-    # fails without.
-    Done.stdout = re.sub(r"HMMA\S*", "FFMA", GLA_SASS)
+                    "gla_fwd_wide_bf16<64>": {"hmma": 1, "hgmma": 2,
+                                              "registers": 186,
+                                              "spill_bytes": 12},
+                    "gla_fwd<bf16, 64>": {"hmma": 0, "hgmma": 0},
+                    "gla_fwd<float, 128>": {"hmma": 0, "hgmma": 0}}
+    # The CUDA-core bf16 instantiation needs none; a tensor-core one
+    # fails without, and HGMMA alone is enough.
+    Done.stdout = re.sub(r"HMMA\S*", "FFMA", GLA_SASS) + WIDE_SASS
+    with pytest.raises(SystemExit):
+        chip_smoke.tensor_core_use(Build, GLA_PTXAS, "gla_scan")
+    Done.stdout = GLA_SASS + re.sub(r"HMMA\S*", "FFMA", WIDE_SASS)
+    rows = chip_smoke.tensor_core_use(Build, GLA_PTXAS, "gla_scan")
+    assert rows["gla_fwd_wide_bf16<64>"]["hmma"] == 0
+    Done.stdout = GLA_SASS + re.sub(r"H\w*MMA\S*", "FFMA", WIDE_SASS)
     with pytest.raises(SystemExit):
         chip_smoke.tensor_core_use(Build, GLA_PTXAS, "gla_scan")

@@ -202,3 +202,35 @@ def test_wide_head_xlstm_hidden_and_loss_match_jax(kernels):
     close = forward_close(tcfg) if kernels else wide_hidden_close
     with wide_prompts():
         ts.hidden_and_loss_match(jcfg, tcfg, "xlstm-wide", close)
+
+
+def test_chip_smoke_splits_the_prefill_at_the_slstm_step_loop(monkeypatch):
+    """``chip_smoke.split_prefill`` (phase 9's xlstm-350m prefill split)
+    on the CPU, profiling host activity only: every sLSTM step of one
+    prefill of the wide-head model lands in its profiler range, the cell
+    is put back after, and the device split is all zeros here."""
+    import chip_smoke
+    from torch.profiler import ProfilerActivity
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    calls = []
+    cell = tx._slstm_cell
+
+    def counted(*args):
+        calls.append(1)
+        return cell(*args)
+
+    monkeypatch.setattr(tx, "_slstm_cell", counted)
+    cfg = wide_configs(False)[1]
+    model = tmodel.build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (B, 16),
+                           generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        out = chip_smoke.split_prefill(
+            torch, tx, lambda: model.prefill(params, {"tokens": tokens}, 16),
+            "xlstm-wide", activities=[ProfilerActivity.CPU])
+    assert tx._slstm_cell is counted
+    assert out["slstm_steps"] == len(calls) == 16   # one sLSTM layer
+    assert out["slstm_loop_host_ms"] > 0
+    assert out["device_busy_ms"] == out["gla_ms"] == out["slstm_loop_ms"] \
+        == out["rest_ms"] == 0
