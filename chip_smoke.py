@@ -10,8 +10,9 @@ Phases (every one that fails exits non-zero; there is no CPU path):
    ``nvcc`` (one process per source, all at once); the tensor-core
    instructions (HMMA from ``mma.sync``, HGMMA from ``wgmma``) of each
    ``flash_fwd`` and ``gla_fwd`` instantiation, by ``cuobjdump -sass``,
-   beside its registers and spills: every tensor-core (``*_bf16``) one
-   must have some.
+   beside its registers, spills and ``ptxas``'s injected-warpgroup notes:
+   every tensor-core (``*_bf16``) one must have some, and every
+   ``flash_fwd_bf16`` and ``gla_fwd_wide_bf16`` one HGMMA.
 3. Kernels vs their plain versions, on the card, at the main paths'
    shapes and a few more (the quantizer's AlexNet rows are derived from
    the plans of phases 4, 5 and 8 and their loops' numpy replays): both
@@ -246,13 +247,20 @@ def kernel_label(symbol: str):
     return f"{m.group(1)}<{', '.join(args)}>"
 
 
+# Kernels written for wgmma: every instantiation must hold HGMMA.
+WGMMA_KERNELS = ("flash_fwd_bf16", "gla_fwd_wide_bf16")
+
+
 def tensor_core_use(build, log: str, name: str = "flash_attention") -> dict:
     """Tensor-core instructions in each kernel instantiation of the built
     library ``name`` (``cuobjdump -sass``): HMMA (``mma.sync``) and HGMMA
     (``wgmma``), beside the registers and spill bytes ``ptxas -v``
-    reported for it.  Fails unless every tensor-core instantiation
-    (``*_bf16<...>``) has one or the other; the CUDA-core ones (f32, and
-    bf16 shapes the tensor-core kernels do not take) need none."""
+    reported for it and the count of its ``ptxas`` performance notes
+    (``C75xx``: a ``warpgroup.arrive`` or ``wait`` the compiler injected,
+    which serialises ``wgmma``).  Fails unless every tensor-core
+    instantiation (``*_bf16<...>``) has one or the other, and every one
+    of :data:`WGMMA_KERNELS` has HGMMA; the CUDA-core ones (f32, and bf16
+    shapes the tensor-core kernels do not take) need none."""
     tool = Path(build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run(
         [str(tool), "-sass", str(build._target(name))],
@@ -270,6 +278,12 @@ def tensor_core_use(build, log: str, name: str = "flash_attention") -> dict:
         elif fn and re.search(r"\bHGMMA\b", line):
             rows[fn]["hgmma"] += 1
     for line in log.splitlines():
+        m = re.search(r"\(C75\d\d\).* in function '(\S+)'", line)
+        if m:
+            note = kernel_label(m.group(1))
+            if note in rows:
+                rows[note]["notes"] = rows[note].get("notes", 0) + 1
+            continue
         m = re.search(r"entry function '(\S+)'", line)
         if m:
             fn = kernel_label(m.group(1))
@@ -284,11 +298,15 @@ def tensor_core_use(build, log: str, name: str = "flash_attention") -> dict:
     for fn, r in sorted(rows.items()):
         print(f"  {fn:24s} HMMA {r['hmma']:5d}  HGMMA {r['hgmma']:4d}  "
               f"registers {r.get('registers')}  spill bytes "
-              f"{r.get('spill_bytes')}")
+              f"{r.get('spill_bytes')}  injected warpgroup notes "
+              f"{r.get('notes', 0)}")
     tc = [fn for fn in rows if fn.split("<")[0].endswith("_bf16")]
     if not tc or any(rows[fn]["hmma"] + rows[fn]["hgmma"] == 0 for fn in tc):
         fail(f"a tensor-core instantiation of {name} has no HMMA or HGMMA "
              f"instruction: {rows}")
+    if any(rows[fn]["hgmma"] == 0 for fn in rows
+           if fn.split("<")[0] in WGMMA_KERNELS):
+        fail(f"a wgmma kernel of {name} has no HGMMA instruction: {rows}")
     return rows
 
 
@@ -489,7 +507,8 @@ def attention_pairs(T: int, S: int, causal: bool, window: int) -> int:
 
 # (name, BH, BKV, T, S, hd, dtype, causal, window).  bf16 runs on the
 # tensor-core kernel, f32 on the CUDA-core one; the bf16 edge cases are
-# the ragged T, the non-causal window and T != S (no tile skipped).
+# a ragged last 128-row query tile at every head width, the non-causal
+# window and T != S (no tile skipped).
 FLASH_CASES = (
     ("fleet_gla_64x8_512_64", 64 * 8, 64 * 8, 512, 512, 64, "bf16", True, 0),
     ("zamba2_7b_8x32_512_112", 8 * 32, 8 * 32, 512, 512, 112, "bf16", True,
@@ -504,6 +523,9 @@ FLASH_CASES = (
     ("bf16_noncausal_w64_16_200_112", 16, 16, 200, 200, 112, "bf16", False,
      64),
     ("bf16_cross_16_128x384_128", 16, 8, 128, 384, 128, "bf16", False, 0),
+    ("bf16_ragged_16_1000_128_gqa4", 16, 4, 1000, 1000, 128, "bf16", True,
+     0),
+    ("bf16_ragged_w64_8x4_300_256", 8, 4, 300, 300, 256, "bf16", True, 64),
     # phase 9's prefills: zamba2-7b (B=4 x 32 heads of 112) and
     # qwen2.5-3b (B=4 x 16 query heads over 2 KV heads of 128, GQA rep 8)
     ("zamba2_7b_prefill_4x32_2048_112", 4 * 32, 4 * 32, 2048, 2048, 112,
@@ -595,7 +617,9 @@ def check_flash(torch, fa, ref) -> dict:
         print(f"  {name:30s} ok={row['ok']} o err {err_o:.3e} "
               f"({ex_o:.3f} of tol) lse err {err_l:.3e} ({ex_l:.3f}); "
               f"kernel {row['ms']:.5f} ms plain {row['plain_ms']:.5f} ms "
-              f"bound {bnd:.5f} ms ({by}) library {library:.5f} ms")
+              f"bound {bnd:.5f} ms ({by}) library {library:.5f} ms; "
+              f"kernel / library {row['ms'] / library:.2f}, bound / kernel "
+              f"{bnd / row['ms']:.3f}")
         if not row["ok"]:
             fail(f"flash_attention disagrees with its plain version on "
                  f"{name}")
