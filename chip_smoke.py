@@ -248,7 +248,7 @@ def kernel_label(symbol: str):
 
 
 # Kernels written for wgmma: every instantiation must hold HGMMA.
-WGMMA_KERNELS = ("flash_fwd_bf16", "gla_fwd_wide_bf16")
+WGMMA_KERNELS = ("flash_fwd_bf16", "gla_fwd_bf16", "gla_fwd_wide_bf16")
 
 
 def tensor_core_use(build, log: str, name: str = "flash_attention") -> dict:
@@ -278,7 +278,7 @@ def tensor_core_use(build, log: str, name: str = "flash_attention") -> dict:
         elif fn and re.search(r"\bHGMMA\b", line):
             rows[fn]["hgmma"] += 1
     for line in log.splitlines():
-        m = re.search(r"\(C75\d\d\).* in function '(\S+)'", line)
+        m = re.search(r"\(C75\d\d\).* in (?:the )?function '(\S+)'", line)
         if m:
             note = kernel_label(m.group(1))
             if note in rows:
@@ -631,7 +631,7 @@ def check_flash(torch, fa, ref) -> dict:
 # 128 on gla_fwd_bf16, wider on gla_fwd_wide_bf16), any other shape (dk up
 # to 512) on the CUDA-core one.  The bf16 tensor-core edges: a ragged last
 # chunk, normalizing at W=256, dk != dv with the chunk one 64-row
-# sub-tile; the wide kernel at xlstm-350m's prefill (dk 512, eight
+# sub-tile, dk 64 x dv 128 with a chunk of 96 rows; the wide kernel at xlstm-350m's prefill (dk 512, eight
 # 64-column pieces of q and k), at fleet-xlstm's training shape and ragged
 # at dk = dv = 256; on the CUDA cores, one bf16 shape (dv=40) and f32 at
 # dk = dv = 256, ragged.  ``draw`` is "mamba2" (log-decays
@@ -655,6 +655,10 @@ GLA_CASES = (
      "mamba2"),
     ("bf16_dk128_dv64_32_256_W64", 32, 256, 128, 64, 64, "bf16", False,
      "mamba2"),
+    # gla_fwd_bf16<64, 128>, with a chunk that is not a multiple of 64
+    # rows: a tile's rows past W belong to the next chunk and are masked
+    ("bf16_dk64_dv128_ragged_16_300_W96", 16, 300, 64, 128, 96, "bf16",
+     False, "mamba2"),
     ("bf16_cuda_cores_8_96_16x40_W32", 8, 96, 16, 40, 32, "bf16", True,
      "mamba2"),
     # phase 9's zamba2-7b prefill: B=4 x 112 SSM heads, d_state 64

@@ -1,6 +1,7 @@
 // Chunked gated linear recurrence for Hopper (sm_90a): the SSD / mLSTM
-// primitive.  bf16 runs on the tensor cores (mma.sync, and wgmma at heads
-// wider than 128), f32 on the CUDA cores.
+// primitive.  bf16 runs on the tensor cores (wgmma: fed by TMA and
+// warp-specialised up to 128 wide, by cp.async wider), f32 on the CUDA
+// cores.
 //
 // Replaces src/repro/kernels/gla_scan.py::_gla_kernel (the Pallas TPU
 // kernel behind repro.kernels.gla_scan.gla_scan_fwd).  Per head bh, with a
@@ -27,100 +28,115 @@
 //
 // Bound on this card.  At fleet-gla's shape (1,024 heads of T = 512,
 // dk = dv = 64, W = 128, bf16) the kernel must move 288 MB (q, k, v, y
-// once each, a, S and n): 0.086 ms at 3.35 TB/s.  The chunked work
-// (_gla_flops of the JAX layer stack) is 25.8 GFLOP: 0.385 ms on the f32
-// CUDA cores at 67 TFLOP/s even at peak, 0.026 ms on the bf16 tensor
-// cores.  So bytes bound it, but only once the products leave the CUDA
-// cores.
+// once each, a, S and n): 0.086 ms at 3.35 TB/s; at zamba2-7b's prefill
+// (448 heads of 2,048, W = 256) 481 MB, 0.144 ms; at its training group
+// (896 heads of 512, W = 256) 252 MB, 0.075 ms.  The chunked work
+// (_gla_flops of the JAX layer stack) is 25.8 GFLOP at fleet-gla: 0.385 ms
+// on the f32 CUDA cores at 67 TFLOP/s even at peak, 0.026 ms on the bf16
+// tensor cores.  So bytes bound it, but only once the products leave the
+// CUDA cores.
 //
 // Dispatch (dispatch): bf16 with dk and dv multiples of 16 and 16-byte
 // aligned q, k, v takes the tensor cores: up to 128 wide (dk <= 128, dv <=
 // 128) gla_fwd_bf16<DK, DV>, with DK, DV the widths rounded up to 64 or 128
-// (zero-padded in shared memory), which takes every Mamba2 config of the
-// port (head_dim 64, d_state 64 or 128); wider (dk up to 512, xLSTM's
-// mLSTM heads of 256 and 512) gla_fwd_wide_bf16<64>.  f32, and bf16
-// widths that are not multiples of 16, go to gla_fwd<T> on the CUDA
+// (TMA zero-fills the columns past them), which takes every Mamba2 config
+// of the port (head_dim 64, d_state 64 or 128); wider (dk up to 512,
+// xLSTM's mLSTM heads of 256 and 512) gla_fwd_wide_bf16<64>.  f32, and
+// bf16 widths that are not multiples of 16, go to gla_fwd<T> on the CUDA
 // cores.  The choice is by dtype, shape and alignment alone; no kernel
 // falls back to another.
 //
-// gla_fwd_bf16, the tensor-core kernel.  One block of 4 warps per head
-// holds all of dv, so q and k are read once per head (not once per dv
-// slice), and walks the head's chunks in order with S (f32, [dk][dv]) and
-// n in shared memory.  Within a chunk it takes 64-row query sub-tiles,
-// warp w owning rows 16 w .. 16 w + 15, and for each the 64-row key tiles
-// at or before it: steps (chunk, query sub-tile, key tile).
-//   - Copies (was: scalar 2-byte loads with an integer divide each, between
-//     two barriers): cp.async.cg 16-byte copies into bf16 shared memory,
-//     rows padded by 16 B (stride d + 8) so every ldmatrix is free of bank
-//     conflicts; rows past W or T are zero-filled through the src-size
-//     operand.  Two stage buffers: the next step's Q (at a sub-tile's first
-//     key tile), K and V tiles, and the next chunk's a (4-byte cp.async),
-//     are in flight while this step computes.
-//   - Cumsum (was: one warp, seven waiting): every thread sums its run of
-//     the chunk's a, then a shuffle scan within each warp and the four warp
-//     totals across them.  Rows past W hold a = 0, so ca = tot there.
-//   - Products (was: f32 FMAs from shared memory on the CUDA cores):
-//       Q K^T  mma.sync m16n8k16 bf16, f32 accumulators; Q's A fragments
-//              stay in registers for the sub-tile, K's B fragments by
-//              ldmatrix.
-//       Q S_in mma.sync m16n8k8 TF32: q in bf16 is exact in TF32, S_in is
-//              rounded to nearest (cvt.rna's rounding, done in two integer
-//              operations, which was faster on the card than the cvt);
-//              S is stored as interleaved row pairs
-//              (float2, stride dv + 4) so each B fragment is one conflict-
-//              free 8-byte load.  Scaled per row by e^{ca_i} afterwards.
-//              den takes q . n_in on the CUDA cores.
-//       P V    mma.sync m16n8k8 TF32, P = (q_i . k_j) e^{ca_i - ca_j}
-//              rounded the same way; with the k index permuted within each
-//              8-key group (slot t <-> key 2 t, slot t + 4 <-> key 2 t + 1)
-//              P's A fragments are the scores' C fragments and V's B
-//              fragments are the halves of one ldmatrix.trans register, as
-//              in flash_fwd_bf16.  The causal mask runs on the diagonal key
-//              tile only; tiles after the diagonal are never visited.  On
-//              the diagonal, a warp computes and zeroes the products after
-//              its rows rather than skipping them: the warp-dependent
-//              branches cost more on the card than the skipped products
-//              save, since the warp with the last rows sets the step
-//              anyway.  den sums
-//              the f32 scores before rounding.
-//       state  S_new = e^{tot} S_in + (K o w)^T V, w_j = e^{tot - ca_j},
-//              mma.sync m16n8k8 TF32, each warp owning 16 rows of dk (32 at
-//              dk 128): K o w is formed in f32 from ldmatrix.trans
-//              fragments of K and rounded to TF32; V's fragments come by
-//              ldmatrix.trans as for P V (its own loop: sharing P V's
-//              fragments under a compile-time flag spilled at the register
-//              cap and was slower).  n_new sums the f32 K o w on the CUDA
-//              cores.
-//   - Re-reads (was: K and V loaded again per query sub-tile and once more
-//     for the state update, 5 times per chunk at W = 128, 14 at W = 256):
-//     the state update rides the last query sub-tile's key loop, which
-//     visits every key tile of the chunk, so K and V are not loaded for it
-//     again; the key tiles of earlier sub-tiles (n_sub (n_sub + 1) / 2
-//     loads per chunk, 3 at W = 128, 10 at W = 256) come from L2.  S_new
-//     stays in accumulators until the chunk's last step, when every sub-tile
-//     has read S_in.
-//   - Shared memory (was: 84 KB of f32 per block, 2 blocks per SM): bf16
-//     tiles, 74.5 KB at dk = dv = 64, W = 128 and 76.0 KB at W = 256, and
-//     168 registers (the cap for 3 blocks, tc_min_blocks): 3 blocks per
-//     SM.  2 blocks with 190 registers were slower on the card.
-//   - Epilogue: y = acc / max(|den|, 1) (when normalizing, as a multiply
-//     by the reciprocal) in bf16 for rows < W and < T; S and n in f32
-//     after the last chunk.
-//   What still holds it back (times in PERF.md): three of its four
-//   products run in TF32, at half the bf16 rate; each warp runs products,
-//   decays and products in sequence with two barriers per step; and 168
-//   registers hold it to 3 blocks (12 warps) per SM.  Holding a chunk's
-//   whole K and V in shared memory (each element leaving device memory
-//   once) was not built: with no tile copies at all the kernel was no
-//   faster on the card, and the 64 KB more it needs at W = 256 would leave
-//   2 blocks per SM.
-//   Precision of each product, from the CPU emulation of these rounding
-//   points (tests/test_torch_gla_numerics.py) against the step recurrence
-//   at the bf16 TOL of tests/test_kernel_oracle.py: with P, S_in and K o w
-//   in TF32 the worst y error is 0.25 of its allowance and S's 0.05.  P in
-//   bf16 (m16n8k16, half the tensor time) reaches 2.06 x the y allowance;
-//   K o w in bf16 reaches 1.32 x through the state into later chunks' y;
-//   S_in in bf16 0.96 x.
+// gla_fwd_bf16<DK, DV>, the tensor-core kernel up to 128 wide: wgmma fed
+// by TMA, warp-specialised.  A persistent grid, one block of 384 threads
+// per SM, takes heads blockIdx.x, + gridDim.x, ... and walks each head's
+// chunks in order; the next head's copies and scans run under the last
+// chunk of this one.
+//   - Warpgroup 2 loads (setmaxnreg lowers it to 40 registers).  One
+//     thread issues every copy, in the order the consumers take them: per
+//     chunk and 128-row query tile, its Q tile, then the 64-row K and V
+//     tiles of the key tiles it sees.  3-D tensor maps over [BH, T, d],
+//     128-byte swizzle, 64-column boxes (one at d 64, two at 128); two Q
+//     stages (one at 128 x 128) and a ring of K / V stages (4 at 64 x 64, 3
+//     at 64 x 128, 2 at dk 128: what fits at the largest chunk), each tile
+//     with a full mbarrier (TMA completes it) and an empty one (each
+//     consumer warp arrives when it has read the tile).  The copies run
+//     ahead across chunk and head boundaries.  TMA zero-fills past T but
+//     not past W: a tile's rows at or past W belong to the next chunk, so
+//     their key weights are 0, the causal mask hides them, and their y
+//     rows are not written (the next chunk writes them).  A second warp
+//     scans each chunk's a (coalesced loads: a chunk's a is only 4-byte
+//     aligned, which a bulk copy does not take; then a shuffle scan) into
+//     ca log2(e) and the state's key weights w_j = e^{tot - ca_j}, 0 at or
+//     past W or T, a buffer per chunk parity with an mbarrier each way.
+//   - Warpgroups 0 and 1 compute (setmaxnreg raises them to 232), 64 query
+//     rows each of the query tile, in lockstep through the K / V ring: a
+//     query tile visits the key tiles up to its diagonal.  At each key tile
+//     a warpgroup whose rows see it runs
+//       Q K^T  wgmma m64n64k16 bf16, Q and K K-major from the swizzled
+//              tiles, DK / 16 k-steps;
+//       P      scores times e^{ca_i - ca_j} (ex2 of a difference of the
+//              scaled ca), zero after the row on the diagonal tile; den
+//              sums the f32 p.  The two warpgroups take turns at this step
+//              (named barriers 3 and 4, kNarrowPingPong), so that one's
+//              exponentials run under the other's products rather than
+//              beside its exponentials on the same pipe;
+//       P V    p split hi + lo (split_pair), two wgmma m64nDVk16 bf16
+//              products with A from registers and B the V tile as TMA
+//              brought it: V is MN-major (dv contiguous), read through
+//              wgmma's transpose flag, never transposed or widened.
+//     On the chunk's last query tile every key tile also updates the
+//     state: S = e^{tot} S_in + (K o w)^T V on wgmma m64nSNk16, A = (K o w)^T
+//     from ldmatrix.trans fragments of the K tile times w_j, split hi + lo,
+//     B = V as for P V.  The state stays in its owners' registers across
+//     the walk: warpgroup 0's at 64 x 64 (32 a thread), else split between
+//     the two by dk rows (dk 128) or by dv boxes (64 x 128); n sums the f32
+//     K o w on the CUDA cores.  Each chunk begins with S_in written into
+//     shared memory as bf16 hi and lo tiles (MN-major, as V) and n_in in
+//     f32, between two named barriers of the consumers; each query tile
+//     with q (S_hi + S_lo) (wgmma m64nDVk16, A = Q, B = S; S is zero at the
+//     first chunk) and key tile 0's Q K^T in one group, and q . n_in on the
+//     CUDA cores under it, both scaled by e^{ca_i}.  y = acc / max(|den|,
+//     1) goes out in bf16 from registers for rows < W and < T; S and n in
+//     f32 after the last chunk.
+//   - Every wgmma is unconditional in its code path: a key tile's flags
+//     (rows see it, state, where its Q K^T is issued) are template
+//     arguments (Flag), so that no accumulator passes through a branch
+//     between a wgmma and its wait, and the warpgroup index is shuffled
+//     from lane 0 so that branches on it are warp-uniform to the compiler.
+//     With run-time flags ptxas serialized every wgmma of the kernel
+//     (performance notes C7520, then C7515) and the kernel was 1.3 x
+//     slower.
+//   - Precision, from the CPU emulation of these rounding points
+//     (tests/test_torch_gla_numerics.py) against the step recurrence at
+//     the bf16 TOL of tests/test_kernel_oracle.py: P, S_in and K o w each
+//     as hi + lo, both truncated to bf16 by masks and byte permutes (a
+//     conversion instruction would share the exponentials' pipe), miss
+//     the f32 value by less than 2^-15 of it; y reads 0.108-0.123 of its
+//     allowance, as with f32 operands (one TF32 rounding, the earlier
+//     mma.sync kernel's: up to 0.25), S at most 0.002.  One bf16 rounding
+//     of P reaches 2.06 x the y allowance, of K o w 1.14 x, of S_in 0.80 x.
+//   - Occupancy: one block per SM (384 threads: 168 registers at entry, 40
+//     in the loads, 232 in the consumers, which spill nothing but at 128 x
+//     128).  zamba2-7b's 448 prefill heads come to 3.4 a block (four
+//     rounds, the last 0.39 full), its training group's 896 to 6.8 and
+//     fleet-gla's 1,024 to 7.8.  Two blocks per SM would leave a consumer
+//     112 registers, under what y, the state piece and one key tile's
+//     operands take; a dv split would recompute Q K^T and re-read q and k.
+//   Measured on the card (kernels/gla_variants.py; times in PERF.md): 1.7 x
+//   faster than the mma.sync kernel it replaced at zamba2-7b's prefill and
+//   2.1 x its bound there, 1.3 x faster and 1.8 x its bound at fleet-gla.
+//   Each consumer's chain per key tile (wait, Q K^T, decays, split, P V)
+//   sets the pace: with none of the products the kernel still takes 0.68
+//   to 0.78 of its time.  Tried and not kept: hi and lo rounded to nearest by
+//   conversions (rn_split, 3-10 % slower: they share the exponentials'
+//   pipe); two K / V stages at every width (stages2, within 2 %); a key
+//   tile's Q K^T issued beside the previous tile's P V, or that P V in
+//   flight under the next tile's decays as flash_fwd_bf16 does (no
+//   faster); the warpgroups' decays at once rather than in turns
+//   (no_pingpong, up to 4 % slower); a's loads one after another in the
+//   scan (no slower: it runs a chunk ahead); a block per head (per_head,
+//   5-8 % slower at fleet-gla and the training group, within 1 % at the
+//   prefill).
 //
 // gla_fwd_wide_bf16, the tensor-core kernel for bf16 heads wider than
 // 128 (it replaced gla_fwd there, which ran xlstm-350m's prefill at 155x
@@ -156,7 +172,7 @@
 //     fragments of K), B = V^T: wgmma takes TF32 operands only K-major, so
 //     V is transposed once per key tile into a swizzled TF32 tile whose
 //     keys are permuted as the A fragments' (slot t <-> key 2 t, slot
-//     t + 4 <-> key 2 t + 1 in each group of 8, as in gla_fwd_bf16).
+//     t + 4 <-> key 2 t + 1 in each group of 8).
 //   - q S_in: mma.sync m16n8k8 TF32, A from Q's bf16 fragments, B from S's
 //     row pairs (S stays f32 and would need a second, TF32-split copy to
 //     be a wgmma operand).
@@ -211,6 +227,7 @@
 // [64][64], n [DKP] and 2 W floats, DKP = dk rounded up to 64: 83,968 B
 // at dk = 64, W = 128 and 201,472 B at dk = 512, W = 256.
 
+#include <cuda.h>   // CUtensorMap and its enums only: no libcuda symbol
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -519,26 +536,20 @@ gla_fwd(const T* __restrict__ q, const T* __restrict__ k,
       n_out[static_cast<long long>(bh) * dk + d] = ns[d];
 }
 
-
 // ---------------------------------------------------------------------------
-// bf16: tensor cores.
+// bf16: tensor cores, helpers of both kernels.
 // ---------------------------------------------------------------------------
 
-constexpr int kTcThreads = 128;   // 4 warps, 16 query rows each
+constexpr int kTcThreads = 128;   // one warpgroup
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 (or 4) bytes global -> shared; src_bytes = 0 writes zeros.
+// 16 bytes global -> shared; src_bytes = 0 writes zeros.
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(dst), "l"(src), "r"(src_bytes));
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -560,17 +571,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // d += a (16 x 8, row) * b (8 x 8, col), TF32 in, f32 accumulate.
@@ -602,33 +602,6 @@ __device__ __forceinline__ float lo_f(uint32_t x) {
 }
 __device__ __forceinline__ float hi_f(uint32_t x) {
   return __uint_as_float(hi_bits(x));
-}
-
-// Shared memory of gla_fwd_bf16<DK, DV>, in bytes: two stage buffers of
-// Q, K [64][DK + 8] and V [64][DV + 8] bf16; S as row pairs float2
-// [DK / 2][DV + 4]; n [DK]; four warp totals; then a [2][Wp] (a stage
-// each) and ca [Wp] f32, with Wp the chunk rounded up to 64 rows.
-template <int DK, int DV>
-struct TcSmem {
-  static constexpr int KSTR = DK + 8;
-  static constexpr int VSTR = DV + 8;
-  static constexpr int SSTR = DV + 4;
-  static constexpr int Q_BYTES = kTile * KSTR * 2;
-  static constexpr int STAGE = 2 * Q_BYTES + kTile * VSTR * 2;
-  static constexpr int S_OFF = 2 * STAGE;
-  static constexpr int N_OFF = S_OFF + DK / 2 * SSTR * 8;
-  static constexpr int RED_OFF = N_OFF + DK * 4;
-  static constexpr int A_OFF = RED_OFF + 4 * 4;
-  static int bytes(int W) {
-    return A_OFF + 3 * ((W + kTile - 1) / kTile * kTile) * 4;
-  }
-};
-
-// Blocks per SM the register allocation must allow: 3 at dk = dv = 64
-// (the shared memory allows 3 there); ptxas chooses at the wider shapes.
-template <int DK, int DV>
-__host__ __device__ constexpr int tc_min_blocks() {
-  return DK == 64 && DV == 64 ? 3 : 1;
 }
 
 // Chunk rows [r0, r0 + 64) of a [n_t, ld] bf16 matrix, its first D
@@ -681,356 +654,6 @@ __device__ __forceinline__ void chunk_cumsum(At a_at, float* ca, float* red,
   }
 }
 
-template <int DK, int DV>
-__global__ void __launch_bounds__(kTcThreads, tc_min_blocks<DK, DV>())
-gla_fwd_bf16(const __nv_bfloat16* __restrict__ q,
-             const __nv_bfloat16* __restrict__ k,
-             const __nv_bfloat16* __restrict__ v, const float* __restrict__ a,
-             __nv_bfloat16* __restrict__ y, float* __restrict__ S_out,
-             float* __restrict__ n_out, int n_t, int dk, int dv, int W,
-             int normalize) {
-  using L = TcSmem<DK, DV>;
-  constexpr int KS = DK / 16;   // k-steps of Q K^T
-  constexpr int NV = DV / 8;    // n-tiles of y and of the state
-  constexpr int MT = DK / 64;   // 16-row m-tiles of the state per warp
-  constexpr int KSTR = L::KSTR, VSTR = L::VSTR, SSTR = L::SSTR;
-  extern __shared__ __align__(16) unsigned char smem_tc[];
-  const uint32_t base = smem_addr(smem_tc);
-  float2* Sp = reinterpret_cast<float2*>(smem_tc + L::S_OFF);
-  float* ns = reinterpret_cast<float*>(smem_tc + L::N_OFF);
-  float* red = reinterpret_cast<float*>(smem_tc + L::RED_OFF);
-  const int n_sub = (W + kTile - 1) / kTile;
-  const int Wp = n_sub * kTile;
-  float* a_s = reinterpret_cast<float*>(smem_tc + L::A_OFF);   // [2][Wp]
-  float* ca = a_s + 2 * Wp;                                  // [Wp]
-
-  const int bh = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tq = lane & 3;   // accumulator row / column pair
-  const long long head = static_cast<long long>(bh) * n_t;
-  const __nv_bfloat16* qb = q + head * dk;
-  const __nv_bfloat16* kb = k + head * dk;
-  const __nv_bfloat16* vb = v + head * dv;
-  const float* ab = a + head;
-  __nv_bfloat16* yb = y + head * dv;
-
-  for (int e = tid; e < DK / 2 * SSTR; e += kTcThreads)
-    Sp[e] = make_float2(0.0f, 0.0f);
-  for (int e = tid; e < DK; e += kTcThreads) ns[e] = 0.0f;
-
-  // The copies of step (c, qs, ks) into stage buffer b: K and V rows of
-  // key tile ks of chunk c, Q rows of sub-tile qs at its first key tile,
-  // and the chunk's a at its first step.
-  auto issue = [&](int ic, int iq, int ik, int ib) {
-    const long long t0 = static_cast<long long>(ic) * W;
-    const uint32_t st = base + ib * L::STAGE;
-    if (ik == 0)
-      load_rows<DK>(st, qb, dk, dk, t0, iq * kTile, W, n_t, tid);
-    load_rows<DK>(st + L::Q_BYTES, kb, dk, dk, t0, ik * kTile, W, n_t, tid);
-    load_rows<DV>(st + 2 * L::Q_BYTES, vb, dv, dv, t0, ik * kTile, W, n_t,
-                  tid);
-    if (iq == 0 && ik == 0) {
-      const uint32_t as = smem_addr(a_s + ib * Wp);
-      for (int r = tid; r < Wp; r += kTcThreads) {
-        const bool in = r < W && t0 + r < n_t;
-        cp_async4(as + r * 4, in ? ab + t0 + r : ab, in ? 4 : 0);
-      }
-    }
-    cp_async_commit();
-  };
-
-  const int n_chunks = (n_t + W - 1) / W;
-  uint32_t qf[KS][4];        // Q's A fragments, for the sub-tile
-  float acc[NV][4];          // y rows r_lo, r_lo + 8, for the sub-tile
-  float den[2];              // this lane's share of den for those rows
-  float ca_r[2];             // ca of those rows
-  float snew[MT][NV][4];     // sum_j (K o w)^T V, for the chunk
-  float nsum[MT][2];         // this lane's share of sum_j (K o w)
-  float tot = 0.0f;
-
-  issue(0, 0, 0, 0);
-  int c = 0, qs = 0, ks = 0, b = 0;
-  for (;;) {
-    int nc = c, nq = qs, nk = ks + 1;
-    if (nk > nq) {
-      nk = 0;
-      if (++nq == n_sub) {
-        nq = 0;
-        ++nc;
-      }
-    }
-    const bool more = nc < n_chunks;
-    if (more) {
-      issue(nc, nq, nk, b ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const uint32_t q_s = base + b * L::STAGE;
-    const uint32_t k_s = q_s + L::Q_BYTES;
-    const uint32_t v_s = k_s + L::Q_BYTES;
-    const bool last = qs == n_sub - 1;   // the state update rides this
-    const bool diag = ks == qs;
-    const int r_lo = qs * kTile + 16 * warp + g;   // chunk rows r_lo, +8
-
-    if (qs == 0 && ks == 0) {
-      const float* as = a_s + b * Wp;
-      chunk_cumsum([as](int i) { return as[i]; }, ca, red, Wp, tid);
-      __syncthreads();
-      tot = ca[W - 1];
-    }
-
-    if (ks == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk)
-        ldmatrix_x4(qf[kk], q_s + ((16 * warp + (lane & 15)) * KSTR +
-                                   16 * kk + (lane >> 4) * 8) * 2);
-      ca_r[0] = ca[r_lo];
-      ca_r[1] = ca[r_lo + 8];
-      const float e0 = __expf(ca_r[0]), e1 = __expf(ca_r[1]);
-      // Inter-chunk term, TF32: A from Q's bf16 fragments (k permuted
-      // within each 8-column group), B from S's row pairs.
-#pragma unroll
-      for (int n = 0; n < NV; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
-#pragma unroll
-      for (int k8 = 0; k8 < DK / 8; ++k8) {
-        const uint32_t rg = qf[k8 >> 1][(k8 & 1) * 2];       // row g
-        const uint32_t rg8 = qf[k8 >> 1][(k8 & 1) * 2 + 1];  // row g + 8
-        const uint32_t af[4] = {lo_bits(rg), lo_bits(rg8), hi_bits(rg),
-                                hi_bits(rg8)};
-#pragma unroll
-        for (int n = 0; n < NV; ++n) {
-          const float2 sv = Sp[(4 * k8 + tq) * SSTR + 8 * n + g];
-          mma_tf32(acc[n], af, to_tf32(sv.x), to_tf32(sv.y));
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < NV; ++n) {
-        acc[n][0] *= e0;
-        acc[n][1] *= e0;
-        acc[n][2] *= e1;
-        acc[n][3] *= e1;
-      }
-      den[0] = den[1] = 0.0f;
-      if (normalize) {
-        float d0 = 0.0f, d1 = 0.0f;
-#pragma unroll
-        for (int kk = 0; kk < KS; ++kk) {
-          const float2 n0 =
-              *reinterpret_cast<const float2*>(ns + 16 * kk + 2 * tq);
-          const float2 n1 =
-              *reinterpret_cast<const float2*>(ns + 16 * kk + 8 + 2 * tq);
-          d0 += lo_f(qf[kk][0]) * n0.x + hi_f(qf[kk][0]) * n0.y +
-                lo_f(qf[kk][2]) * n1.x + hi_f(qf[kk][2]) * n1.y;
-          d1 += lo_f(qf[kk][1]) * n0.x + hi_f(qf[kk][1]) * n0.y +
-                lo_f(qf[kk][3]) * n1.x + hi_f(qf[kk][3]) * n1.y;
-        }
-        den[0] = e0 * d0;
-        den[1] = e1 * d1;
-      }
-      if (last) {
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          nsum[m][0] = nsum[m][1] = 0.0f;
-#pragma unroll
-          for (int n = 0; n < NV; ++n)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) snew[m][n][e] = 0.0f;
-        }
-      }
-    }
-
-    // Scores of the warp's 16 rows against the tile's 64 keys.  The
-    // step's loops are kept free of branches (see the note at the top).
-    float s[kTile / 8][4];
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-      for (int j = 0; j < kTile / 8; j += 2) {
-        uint32_t bk[4];
-        ldmatrix_x4(bk, k_s + ((8 * j + (lane & 7) + ((lane >> 4) << 3)) *
-                               KSTR + 16 * kk + ((lane >> 3) & 1) * 8) * 2);
-        mma_bf16(s[j], qf[kk], bk[0], bk[1]);
-        mma_bf16(s[j + 1], qf[kk], bk[2], bk[3]);
-      }
-    }
-    // P = scores * e^{ca_i - ca_j}, zero after the row on the diagonal.
-    const int j0 = ks * kTile;
-#pragma unroll
-    for (int j = 0; j < kTile / 8; ++j) {
-      const float2 cj =
-          *reinterpret_cast<const float2*>(ca + j0 + 8 * j + 2 * tq);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int il = 16 * warp + g + 8 * (e >> 1);
-        const int jl = 8 * j + 2 * tq + (e & 1);
-        const float p = diag && jl > il ? 0.0f :
-            s[j][e] * __expf(ca_r[e >> 1] - ((e & 1) ? cj.y : cj.x));
-        s[j][e] = p;
-        den[e >> 1] += p;
-      }
-    }
-
-    // acc += P V, 16 keys at a time, TF32 with the permuted k index.
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t pa[2][4];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        pa[h][0] = to_tf32(s[2 * kk + h][0]);
-        pa[h][1] = to_tf32(s[2 * kk + h][2]);
-        pa[h][2] = to_tf32(s[2 * kk + h][1]);
-        pa[h][3] = to_tf32(s[2 * kk + h][3]);
-      }
-#pragma unroll
-      for (int n = 0; n < NV; n += 2) {
-        uint32_t bv[4];   // keys 16 kk + {0..7, 8..15} x dv 8 n + {0..15}
-        ldmatrix_x4_trans(bv, v_s + ((16 * kk + (lane & 7) +
-                                      ((lane >> 3) & 1) * 8) * VSTR +
-                                     8 * n + (lane >> 4) * 8) * 2);
-        mma_tf32(acc[n], pa[0], lo_bits(bv[0]), hi_bits(bv[0]));
-        mma_tf32(acc[n + 1], pa[0], lo_bits(bv[2]), hi_bits(bv[2]));
-        mma_tf32(acc[n], pa[1], lo_bits(bv[1]), hi_bits(bv[1]));
-        mma_tf32(acc[n + 1], pa[1], lo_bits(bv[3]), hi_bits(bv[3]));
-      }
-    }
-
-    // On the last sub-tile: snew += (K o w)^T V over this key tile, TF32
-    // with the permuted k index; V's fragments as for P V.
-    if (last) {
-#pragma unroll
-      for (int kk = 0; kk < kTile / 16; ++kk) {
-        const float2 c0 =
-            *reinterpret_cast<const float2*>(ca + j0 + 16 * kk + 2 * tq);
-        const float2 c1 =
-            *reinterpret_cast<const float2*>(ca + j0 + 16 * kk + 8 + 2 * tq);
-        const float w0 = __expf(tot - c0.x), w1 = __expf(tot - c0.y);
-        const float w2 = __expf(tot - c1.x), w3 = __expf(tot - c1.y);
-        uint32_t ka[MT][2][4];
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-          // kr[0]: keys 2t, 2t+1 of the group at dk row r0 + g; kr[1]: row
-          // r0 + g + 8; kr[2], kr[3]: keys 8 + 2t, 9 + 2t.
-          uint32_t kr[4];
-          ldmatrix_x4_trans(kr, k_s + ((16 * kk + (lane & 7) +
-                                        ((lane >> 4) << 3)) * KSTR +
-                                       64 * m + 16 * warp +
-                                       ((lane >> 3) & 1) * 8) * 2);
-          const float x00 = lo_f(kr[0]) * w0, x01 = hi_f(kr[0]) * w1;
-          const float x10 = lo_f(kr[1]) * w0, x11 = hi_f(kr[1]) * w1;
-          const float x20 = lo_f(kr[2]) * w2, x21 = hi_f(kr[2]) * w3;
-          const float x30 = lo_f(kr[3]) * w2, x31 = hi_f(kr[3]) * w3;
-          ka[m][0][0] = to_tf32(x00);
-          ka[m][0][1] = to_tf32(x10);
-          ka[m][0][2] = to_tf32(x01);
-          ka[m][0][3] = to_tf32(x11);
-          ka[m][1][0] = to_tf32(x20);
-          ka[m][1][1] = to_tf32(x30);
-          ka[m][1][2] = to_tf32(x21);
-          ka[m][1][3] = to_tf32(x31);
-          nsum[m][0] += (x00 + x01) + (x20 + x21);
-          nsum[m][1] += (x10 + x11) + (x30 + x31);
-        }
-#pragma unroll
-        for (int n = 0; n < NV; n += 2) {
-          uint32_t bv[4];
-          ldmatrix_x4_trans(bv, v_s + ((16 * kk + (lane & 7) +
-                                        ((lane >> 3) & 1) * 8) * VSTR +
-                                       8 * n + (lane >> 4) * 8) * 2);
-#pragma unroll
-          for (int m = 0; m < MT; ++m) {
-            mma_tf32(snew[m][n], ka[m][0], lo_bits(bv[0]), hi_bits(bv[0]));
-            mma_tf32(snew[m][n + 1], ka[m][0], lo_bits(bv[2]),
-                     hi_bits(bv[2]));
-            mma_tf32(snew[m][n], ka[m][1], lo_bits(bv[1]), hi_bits(bv[1]));
-            mma_tf32(snew[m][n + 1], ka[m][1], lo_bits(bv[3]),
-                     hi_bits(bv[3]));
-          }
-        }
-      }
-    }
-
-    if (diag) {   // the sub-tile's last key tile: y
-      float inv[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float d = den[r] + __shfl_xor_sync(0xffffffffu, den[r], 1);
-        d += __shfl_xor_sync(0xffffffffu, d, 2);
-        inv[r] = normalize ? 1.0f / fmaxf(fabsf(d), 1.0f) : 1.0f;
-      }
-      const long long t0 = static_cast<long long>(c) * W;
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = r_lo + 8 * r;
-        const long long t = t0 + row;
-        if (row >= W || t >= n_t) continue;
-#pragma unroll
-        for (int n = 0; n < NV; ++n) {
-          const int col = 8 * n + 2 * tq;
-          if (col < dv)
-            *reinterpret_cast<__nv_bfloat162*>(yb + t * dv + col) =
-                __floats2bfloat162_rn(acc[n][2 * r] * inv[r],
-                                      acc[n][2 * r + 1] * inv[r]);
-        }
-      }
-    }
-
-    if (last && diag) {   // the chunk's last step: S and n for the next
-      __syncthreads();    // every warp has read S_in and n_in
-      const float gt = __expf(tot);
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        const int r0 = 64 * m + 16 * warp + g;
-#pragma unroll
-        for (int n = 0; n < NV; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int row = r0 + 8 * (e >> 1);
-            float* sp = reinterpret_cast<float*>(
-                Sp + (row >> 1) * SSTR + 8 * n + 2 * tq + (e & 1)) +
-                (row & 1);
-            *sp = gt * *sp + snew[m][n][e];
-          }
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          float sum = nsum[m][r] + __shfl_xor_sync(0xffffffffu, nsum[m][r], 1);
-          sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-          if (tq == 0) ns[r0 + 8 * r] = gt * ns[r0 + 8 * r] + sum;
-        }
-      }
-    }
-    __syncthreads();   // this buffer is refilled by the next copy
-    if (!more) break;
-    c = nc;
-    qs = nq;
-    ks = nk;
-    b ^= 1;
-  }
-
-  float* Sb = S_out + static_cast<long long>(bh) * dk * dv;
-  for (int e = tid; e < dk * dv; e += kTcThreads) {
-    const int r = e / dv, col = e - r * dv;
-    const float2 p = Sp[(r >> 1) * SSTR + col];
-    Sb[e] = (r & 1) ? p.y : p.x;
-  }
-  for (int r = tid; r < dk; r += kTcThreads)
-    n_out[static_cast<long long>(bh) * dk + r] = ns[r];
-}
-
-// ---------------------------------------------------------------------------
-// bf16 heads wider than 128: tensor cores, dv split across blocks.
-// ---------------------------------------------------------------------------
-
-constexpr int kWideDvs = 64;                 // dv columns per wide block
-constexpr int kPiece = kTile * kTile * 2;    // one [64][64] bf16 piece
 
 // Byte offset of 16-byte chunk ch (0..7) of row r in a 128-byte-row tile
 // stored with the 128-byte swizzle that wgmma's SWIZZLE_128B reads: chunk
@@ -1073,9 +696,10 @@ __device__ __forceinline__ void pin(float (&r)[N]) {
 // The warpgroup's 64 x 64 f32 accumulator d: d[4 j + e] is the m16n8 C
 // fragment e of 8-column tile j of the warp's 16 rows.
 //
-// d += A (64 x 16) B^T (16 x 64), A and B K-major bf16 in shared memory.
+// d = (scale_d ? d : 0) + A (64 x 16) B^T (16 x 64), A and B K-major bf16
+// in shared memory.
 __device__ __forceinline__ void wgmma_64x64x16(float (&d)[32], uint64_t da,
-                                               uint64_t db) {
+                                               uint64_t db, int scale_d = 1) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -1092,8 +716,802 @@ __device__ __forceinline__ void wgmma_64x64x16(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(scale_d));
 }
+
+// ---------------------------------------------------------------------------
+// bf16 heads up to 128: wgmma fed by TMA, warp-specialised.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+// Waits until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// Box (c0 column, c1 row, c2 head) of `map` into shared memory at dst,
+// completing `bar`'s transaction bytes.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2) : "memory");
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// wgmma descriptor of an MN-major operand (V, S_in: K runs down the rows,
+// N along them) in 64-column boxes with the 128-byte swizzle: each box
+// holds 8-row groups 1,024 bytes apart (SBO), the boxes are `box_bytes`
+// apart (LBO).  A k-step of 16 rows advances the address by 2,048 bytes.
+__device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr,
+                                                  uint32_t box_bytes) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(box_bytes >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+// d = (scale_d ? d : 0) + A (64 x 16) B (16 x N), A K-major and B MN-major
+// bf16 in shared memory.
+template <int N>
+__device__ void wgmma_ss_t(float (&d)[N / 2], uint64_t da, uint64_t db,
+                           int scale_d);
+// d += A (64 x 16) B (16 x N), A bf16 from registers (the warp's m16n8k16
+// A fragment of its 16 rows), B MN-major bf16 in shared memory.
+template <int N>
+__device__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                         uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_ss_t<64>(float (&d)[32], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_t<128>(float (&d)[64], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The pair (x, y) as bf16 hi and lo parts, two to a register (x in the
+// low half): hi = x truncated to bf16 (its low 16 bits cleared), lo = x -
+// hi (exact in f32) truncated the same way, so hi + lo misses x by less
+// than 2^-15 |x|.  Masks and byte permutes only: a conversion instruction
+// would share the exponentials' pipe.
+__device__ __forceinline__ void split_pair(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  const uint32_t xb = __float_as_uint(x), yb = __float_as_uint(y);
+  hi = __byte_perm(xb, yb, 0x7632);
+  lo = __byte_perm(__float_as_uint(x - __uint_as_float(xb & 0xffff0000u)),
+                   __float_as_uint(y - __uint_as_float(yb & 0xffff0000u)),
+                   0x7632);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Stages of the K / V ring and of the Q tile of gla_fwd_bf16<DK, DV>: as
+// many as fit beside the rest at the largest chunk.
+template <int DK, int DV>
+__host__ __device__ constexpr int narrow_stages() {
+  return DK == 64 ? (DV == 64 ? 4 : 3) : 2;
+}
+template <int DK, int DV>
+__host__ __device__ constexpr int narrow_q_stages() {
+  return DK == 128 && DV == 128 ? 1 : 2;
+}
+// Whether the consumer warpgroups take turns at their decays (named
+// barriers 3 and 4), so that one's exponentials run under the other's
+// products rather than beside its exponentials on the same pipe.
+constexpr bool kNarrowPingPong = true;
+
+// A compile-time flag passed to a generic lambda.
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
+};
+
+// Shared memory of gla_fwd_bf16<DK, DV>, in bytes from a 1,024-byte aligned
+// base (1,024 more are allocated to align it).  Tiles are rows of 128 bytes
+// (64 bf16) in the 128-byte swizzle, a 64-column box after another:
+// QSTAGES stages of the 128-row Q tile; STAGES stages of the 64-row K and
+// V tiles; S_in as bf16 hi and lo tiles [DK rows] (MN-major, as V); n_in
+// [DK] f32; the mbarriers; then per chunk parity the chunk's ca log2(e)
+// [Wp] and w [Wp] f32, Wp the chunk rounded up to 64 rows.
+template <int DK, int DV>
+struct NarrowTiles {
+  static constexpr int NBK = DK / 64;      // 64-column boxes of a q / k row
+  static constexpr int NBV = DV / 64;      // of a v row and of S
+  static constexpr int STAGES = narrow_stages<DK, DV>();
+  static constexpr int QSTAGES = narrow_q_stages<DK, DV>();
+  static constexpr int Q_BOX = 128 * 128;  // 128 rows of 128 bytes
+  static constexpr int KV_BOX = 64 * 128;  // 64 rows of 128 bytes
+  static constexpr int S_BOX = DK * 128;   // DK rows of 128 bytes
+  static constexpr int Q_BYTES = NBK * Q_BOX;
+  static constexpr int K_BYTES = NBK * KV_BOX;
+  static constexpr int V_BYTES = NBV * KV_BOX;
+  static constexpr int S_BYTES = NBV * S_BOX;   // one of hi and lo
+  static constexpr int K_OFF = QSTAGES * Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * K_BYTES;
+  static constexpr int SH_OFF = V_OFF + STAGES * V_BYTES;
+  static constexpr int SL_OFF = SH_OFF + S_BYTES;
+  static constexpr int N_OFF = SL_OFF + S_BYTES;
+  static constexpr int BAR_OFF = N_OFF + DK * 4;
+  // q_full, q_empty per Q stage; k_full, v_full, k_empty, v_empty per
+  // stage; ca_full, ca_empty per chunk parity
+  static constexpr int BARS = 2 * QSTAGES + 4 * STAGES + 4;
+  static constexpr int CA_OFF = BAR_OFF + 8 * BARS;
+  static constexpr int THREADS = 384;
+  __host__ __device__ static constexpr int bytes(int Wp) {
+    return 1024 + CA_OFF + 4 * Wp * 4;
+  }
+  static_assert(DK % 64 == 0 && DK <= 128 && DV % 64 == 0 && DV <= 128,
+                "64 or 128 wide");
+  static_assert(bytes(kMaxChunk) <= 232448, "shared memory of one block");
+};
+
+// gla_fwd_bf16: see the note at the top of this file.  One block per head:
+// warpgroup 2 loads (one thread issues the TMA copies, one warp scans a),
+// warpgroups 0 and 1 compute, 64 query rows each of a 128-row query tile.
+template <int DK, int DV>
+__global__ void __launch_bounds__(NarrowTiles<DK, DV>::THREADS, 1)
+gla_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
+             const __grid_constant__ CUtensorMap tm_k,
+             const __grid_constant__ CUtensorMap tm_v,
+             const float* __restrict__ a, __nv_bfloat16* __restrict__ y,
+             float* __restrict__ S_out, float* __restrict__ n_out, int n_bh,
+             int n_t, int dk, int dv, int W, int normalize) {
+  using L = NarrowTiles<DK, DV>;
+  constexpr int STAGES = L::STAGES, QSTAGES = L::QSTAGES;
+  // The state's owners: a warpgroup holds a 64-row piece of dk (m_tile)
+  // by SN columns of dv from col0 in registers.  At 64 x 64 warpgroup 0
+  // holds all of it; otherwise the two split it, by dk rows at DK 128, by
+  // dv boxes at 64 x 128.
+  constexpr int SN = DK == 128 ? DV : 64;
+  extern __shared__ __align__(1024) unsigned char smem_nt[];
+  const uint32_t raw = smem_addr(smem_nt);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sm = smem_nt + (base - raw);
+  const uint32_t q_s = base;                 // [QSTAGES][NBK][128][128 B]
+  const uint32_t k_s = base + L::K_OFF;      // [STAGES][NBK][64][128 B]
+  const uint32_t v_s = base + L::V_OFF;      // [STAGES][NBV][64][128 B]
+  const uint32_t sh_s = base + L::SH_OFF;    // [NBV][DK][128 B]
+  const uint32_t sl_s = base + L::SL_OFF;
+  float* n_in = reinterpret_cast<float*>(sm + L::N_OFF);
+  const uint32_t q_full = base + L::BAR_OFF;            // + 8 s
+  const uint32_t q_empty = q_full + 8 * QSTAGES;        // + 8 s
+  const uint32_t k_full = q_empty + 8 * QSTAGES;        // + 8 s
+  const uint32_t v_full = k_full + 8 * STAGES;          // + 8 s
+  const uint32_t k_empty = v_full + 8 * STAGES;         // + 8 s
+  const uint32_t v_empty = k_empty + 8 * STAGES;        // + 8 s
+  const uint32_t ca_full = v_empty + 8 * STAGES;        // + 8 b
+  const uint32_t ca_empty = ca_full + 16;               // + 8 b
+  const int n_sub = (W + 63) / 64;      // 64-row key tiles of a chunk
+  const int Wp = n_sub * 64;
+  const int n_qt = (W + 127) / 128;     // 128-row query tiles of a chunk
+  const int n_chunks = (n_t + W - 1) / W;
+  float* ca_s = reinterpret_cast<float*>(sm + L::CA_OFF);   // [2][2][Wp]
+  // The block's heads: blockIdx.x, then every gridDim.x-th (a persistent
+  // grid, so that the next head's copies and scans run under this one's
+  // last chunk).
+  const int bh0 = blockIdx.x, bh_step = gridDim.x;
+  const int tid = threadIdx.x;
+  // Warp-uniform as far as the compiler can tell (a shuffle from lane 0),
+  // so that the wgmma under conditions on it are not serialized as if on
+  // a divergent path.
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+
+  if (tid == 0) {
+    for (int s = 0; s < QSTAGES; ++s) {
+      mbar_init(q_full + 8 * s, 1);
+      mbar_init(q_empty + 8 * s, 8);   // one arrival a consumer warp
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, 8);
+      mbar_init(v_empty + 8 * s, 8);
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(ca_full + 8 * b, 32);  // one arrival a lane of the scan
+      mbar_init(ca_empty + 8 * b, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    const int warp = (tid >> 5) & 3, lane = tid & 31;
+    if (warp == 0 && lane == 0) {
+      // The copies, in the order the consumers take them: per head, chunk
+      // and query tile, its Q tile, then the K and V tiles of its key
+      // tiles.
+      int qi = 0, ki = 0;
+      for (int bh = bh0; bh < n_bh; bh += bh_step)
+      for (int c = 0; c < n_chunks; ++c) {
+        const int t0 = c * W;
+        for (int qt = 0; qt < n_qt; ++qt, ++qi) {
+          const int qs = qi % QSTAGES;
+          if (qi >= QSTAGES)
+            mbar_wait(q_empty + 8 * qs, ((qi / QSTAGES) & 1) ^ 1);
+          mbar_expect_tx(q_full + 8 * qs, L::Q_BYTES);
+#pragma unroll
+          for (int b = 0; b < L::NBK; ++b)
+            tma_load(q_s + qs * L::Q_BYTES + b * L::Q_BOX, &tm_q,
+                     q_full + 8 * qs, 64 * b, t0 + 128 * qt, bh);
+          const int kt_hi = min(2 * qt + 2, n_sub);
+          for (int ks = 0; ks < kt_hi; ++ks, ++ki) {
+            const int s = ki % STAGES;
+            const uint32_t parity = ((ki / STAGES) & 1) ^ 1;
+            if (ki >= STAGES) mbar_wait(k_empty + 8 * s, parity);
+            mbar_expect_tx(k_full + 8 * s, L::K_BYTES);
+#pragma unroll
+            for (int b = 0; b < L::NBK; ++b)
+              tma_load(k_s + s * L::K_BYTES + b * L::KV_BOX, &tm_k,
+                       k_full + 8 * s, 64 * b, t0 + 64 * ks, bh);
+            if (ki >= STAGES) mbar_wait(v_empty + 8 * s, parity);
+            mbar_expect_tx(v_full + 8 * s, L::V_BYTES);
+#pragma unroll
+            for (int b = 0; b < L::NBV; ++b)
+              tma_load(v_s + s * L::V_BYTES + b * L::KV_BOX, &tm_v,
+                       v_full + 8 * s, 64 * b, t0 + 64 * ks, bh);
+          }
+        }
+      }
+    } else if (warp == 1) {
+      // Per chunk: ca, the inclusive cumsum of a, times log2(e) (rows at
+      // or past W or n_t hold a = 0, so ca = tot there), and the state's
+      // key weights w_j = e^{tot - ca_j} (0 at or past W or n_t).  a is
+      // copied in by coalesced loads (eight in flight a lane), then each
+      // lane sums a run of Wp / 32 rows and a shuffle scan joins the runs.
+      const int per = Wp / 32, lo = lane * per;
+      int cc = 0;   // chunks scanned, over the block's heads
+      for (int bh = bh0; bh < n_bh; bh += bh_step)
+      for (int c = 0; c < n_chunks; ++c, ++cc) {
+        const float* ab = a + static_cast<long long>(bh) * n_t;
+        const int b = cc & 1;
+        if (cc >= 2) mbar_wait(ca_empty + 8 * b, ((cc >> 1) - 1) & 1);
+        float* ca = ca_s + b * 2 * Wp;
+        float* wv = ca + Wp;
+        const int t0 = c * W;
+#pragma unroll 8
+        for (int i = lane; i < Wp; i += 32)
+          ca[i] = i < W && t0 + i < n_t ? ab[t0 + i] : 0.0f;
+        __syncwarp();
+        float run = 0.0f;
+        for (int i = lo; i < lo + per; ++i) {
+          run += ca[i];
+          ca[i] = run;
+        }
+        float incl = run;
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+          const float up = __shfl_up_sync(0xffffffffu, incl, off);
+          if (lane >= off) incl += up;
+        }
+        const float before = incl - run;
+        for (int i = lo; i < lo + per; ++i) ca[i] = (ca[i] + before) * kLog2e;
+        __syncwarp();
+        const float tot = ca[W - 1];
+        for (int i = lane; i < Wp; i += 32)
+          wv[i] = i < W && t0 + i < n_t ? ex2(tot - ca[i]) : 0.0f;
+        mbar_arrive(ca_full + 8 * b);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int warp = (tid >> 5) & 3, lane = tid & 31;
+    const int g = lane >> 2, tq = lane & 3;   // accumulator row / column pair
+    const bool owner = !(DK == 64 && DV == 64) || wg == 0;
+    const bool n_owner = owner && (DK == 128 || wg == 0);
+    const int m_tile = DK == 128 ? wg : 0;
+    const int col0 = DK == 64 && DV == 128 ? 64 * wg : 0;
+    const int s_row = 64 * m_tile + 16 * warp + g;   // state rows s_row, +8
+
+    float acc[DV / 2];       // y of the warpgroup's 64 rows
+    float sc[32];            // their scores against a key tile, then p
+    uint32_t ph[4][4], pl[4][4];   // p's A fragments, hi and lo
+    uint32_t kh[4][4], kl[4][4];   // (K o w)^T's A fragments, hi and lo
+    float st[SN / 2];        // the owned piece of S (S_in until the chunk's
+                             // last query tile, then S_out of the chunk)
+    float nr[2];             // n at rows s_row, s_row + 8 (owners)
+    if constexpr (kNarrowPingPong) {
+      if (wg == 1) bar_arrive(3, 256);   // warpgroup 0 takes the first turn
+    }
+
+    int qi = 0, ki = 0, cc = 0;   // Q tiles, key tiles, chunks taken
+    for (int bh = bh0; bh < n_bh; bh += bh_step) {
+      __nv_bfloat16* yb = y + static_cast<long long>(bh) * n_t * dv;
+#pragma unroll
+      for (int i = 0; i < SN / 2; ++i) st[i] = 0.0f;
+      nr[0] = nr[1] = 0.0f;
+      for (int c = 0; c < n_chunks; ++c, ++cc) {
+        const int b = cc & 1;
+        const long long t0 = static_cast<long long>(c) * W;
+        const float* ca = ca_s + b * 2 * Wp;   // ca log2(e)
+        const float* wv = ca + Wp;
+        mbar_wait(ca_full + 8 * b, (cc >> 1) & 1);
+        const float tot = ca[W - 1];
+        // S_in and n_in of this chunk (zero at the first) into shared
+        // memory, S_in as bf16 hi and lo, once both warpgroups are done with
+        // the last chunk's.
+        bar_sync(1, 256);
+        if (owner) {
+#pragma unroll
+          for (int j = 0; j < SN / 8; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int row = s_row + 8 * h;
+              const uint32_t off = (col0 / 64 + j / 8) * L::S_BOX + row * 128 +
+                                   (((j & 7) ^ (row & 7)) << 4) + 4 * tq;
+              uint32_t hi, lo;
+              split_pair(st[4 * j + 2 * h], st[4 * j + 2 * h + 1], hi, lo);
+              *reinterpret_cast<uint32_t*>(sm + L::SH_OFF + off) = hi;
+              *reinterpret_cast<uint32_t*>(sm + L::SL_OFF + off) = lo;
+            }
+          if (n_owner && tq == 0) {
+            n_in[s_row] = nr[0];
+            n_in[s_row + 8] = nr[1];
+          }
+        }
+        fence_proxy_async();
+        bar_sync(1, 256);
+        float nsum[2] = {0.0f, 0.0f};   // this lane's share of sum_j (K o w)
+        for (int qt = 0; qt < n_qt; ++qt, ++qi) {
+          const int qs = qi % QSTAGES;
+          const uint32_t qt_s = q_s + qs * L::Q_BYTES + wg * 64 * 128;
+          const int row0 = 128 * qt + 64 * wg;   // chunk row of the first row
+          const bool active = row0 < W;
+          const int r_lo = row0 + 16 * warp + g;  // chunk rows r_lo, r_lo + 8
+          const int kt_hi = min(2 * qt + 2, n_sub);
+          // key tiles [0, n_y) reach this warpgroup's rows (up to the
+          // diagonal); on the last query tile every key tile updates the
+          // state
+          const int n_y = active ? 2 * qt + wg + 1 : 0;
+          const bool sw = qt == n_qt - 1 && owner;
+          const int ki0 = ki;
+          ki += kt_hi;
+          float ca_r[2] = {0.0f, 0.0f};
+          float den[2] = {0.0f, 0.0f};   // this lane's share of den
+          if (active) {
+            ca_r[0] = ca[r_lo];
+            ca_r[1] = ca[r_lo + 8];
+          }
+          // Key tile ks's ring stage and the parity of its barriers.
+          auto stage = [&](int ks) { return (ki0 + ks) % STAGES; };
+          auto parity = [&](int ks) {
+            return static_cast<uint32_t>(((ki0 + ks) / STAGES) & 1);
+          };
+          // Issues Q K^T of key tile ks into sc (the caller commits).
+          auto issue_qk = [&](int ks) {
+            const uint32_t kt_s = k_s + stage(ks) * L::K_BYTES;
+#pragma unroll
+            for (int kk = 0; kk < DK / 16; ++kk)
+              wgmma_64x64x16(sc, sw128_desc(qt_s + (kk >> 2) * L::Q_BOX +
+                                            (kk & 3) * 32),
+                             sw128_desc(kt_s + (kk >> 2) * L::KV_BOX +
+                                        (kk & 3) * 32), kk > 0);
+          };
+          // P = scores * e^{ca_i - ca_j} in place, zero after the row on the
+          // diagonal tile; den sums the f32 p when normalizing.  In this
+          // warpgroup's turn: every key tile is one turn of each warpgroup,
+          // warpgroup 0 first; the last turn of the block is not handed on,
+          // so every bar.sync has its arrive.
+          auto decay = [&](int ks, bool y) {
+            if constexpr (kNarrowPingPong) bar_sync(3 + wg, 256);
+            if (y) {
+#pragma unroll
+              for (int j = 0; j < 8; ++j) {
+                const float2 cj = *reinterpret_cast<const float2*>(
+                    ca + 64 * ks + 8 * j + 2 * tq);
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                  sc[4 * j + e] *=
+                      ex2(ca_r[e >> 1] - ((e & 1) ? cj.y : cj.x));
+              }
+              if (ks == n_y - 1) {   // the diagonal tile (warp-uniform)
+#pragma unroll
+                for (int j = 0; j < 8; ++j)
+#pragma unroll
+                  for (int e = 0; e < 4; ++e)
+                    if (8 * j + 2 * tq + (e & 1) >
+                        16 * warp + g + 8 * (e >> 1))
+                      sc[4 * j + e] = 0.0f;
+              }
+              if (normalize) {
+#pragma unroll
+                for (int j = 0; j < 8; ++j) {
+                  den[0] += sc[4 * j] + sc[4 * j + 1];
+                  den[1] += sc[4 * j + 2] + sc[4 * j + 3];
+                }
+              }
+            }
+            if constexpr (kNarrowPingPong) {
+              const bool last = bh + bh_step >= n_bh && c == n_chunks - 1 &&
+                                qt == n_qt - 1 && ks == kt_hi - 1;
+              if (wg == 0 || !last) bar_arrive(3 + (wg ^ 1), 256);
+            }
+          };
+          // p into the hi and lo A fragments of P V (k-step kk: keys 16 kk ..
+          // 16 kk + 15, the accumulator's tiles 2 kk and 2 kk + 1).
+          auto split_p = [&] {
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const float* p = sc + 4 * (2 * kk + h);
+                split_pair(p[0], p[1], ph[kk][2 * h], pl[kk][2 * h]);
+                split_pair(p[2], p[3], ph[kk][2 * h + 1], pl[kk][2 * h + 1]);
+              }
+          };
+          // (K o w)^T's A fragments: ldmatrix.trans of K's swizzled tile
+          // gives, for dk rows s_row and s_row + 8, keys 2 tq, 2 tq + 1 and
+          // 8 + 2 tq, 9 + 2 tq of each 16; each product split hi + lo.
+          auto split_kw = [&](int ks) {
+            const uint32_t kt_s = k_s + stage(ks) * L::K_BYTES;
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              const float2 wa = *reinterpret_cast<const float2*>(
+                  wv + 64 * ks + 16 * kk + 2 * tq);
+              const float2 wb = *reinterpret_cast<const float2*>(
+                  wv + 64 * ks + 16 * kk + 8 + 2 * tq);
+              uint32_t kr[4];
+              ldmatrix_x4_trans(kr, kt_s + m_tile * L::KV_BOX +
+                                swz(16 * kk + (lane & 7) + ((lane >> 4) << 3),
+                                    2 * warp + ((lane >> 3) & 1)));
+              const float x00 = lo_f(kr[0]) * wa.x, x01 = hi_f(kr[0]) * wa.y;
+              const float x10 = lo_f(kr[1]) * wa.x, x11 = hi_f(kr[1]) * wa.y;
+              const float x20 = lo_f(kr[2]) * wb.x, x21 = hi_f(kr[2]) * wb.y;
+              const float x30 = lo_f(kr[3]) * wb.x, x31 = hi_f(kr[3]) * wb.y;
+              split_pair(x00, x01, kh[kk][0], kl[kk][0]);
+              split_pair(x10, x11, kh[kk][1], kl[kk][1]);
+              split_pair(x20, x21, kh[kk][2], kl[kk][2]);
+              split_pair(x30, x31, kh[kk][3], kl[kk][3]);
+              if (n_owner) {
+                nsum[0] += (x00 + x01) + (x20 + x21);
+                nsum[1] += (x10 + x11) + (x30 + x31);
+              }
+            }
+          };
+          // Key tile ks: Y, this warpgroup's rows see it; S, it updates the
+          // state; Here, its Q K^T is issued here (key tile 0's went with the
+          // inter-chunk term).  Every wgmma below is unconditional within its
+          // instantiation, so that no accumulator passes through a branch
+          // between a wgmma and its wait (ptxas would serialize them).
+          auto step = [&](int ks, auto y_flag, auto s_flag, auto here_flag) {
+            constexpr bool Y = decltype(y_flag)::value;
+            constexpr bool S = decltype(s_flag)::value;
+            constexpr bool Here = decltype(here_flag)::value;
+            mbar_wait(k_full + 8 * stage(ks), parity(ks));
+            if constexpr (Here) {
+              pin(sc);
+              wgmma_fence();
+              issue_qk(ks);
+              wgmma_commit();
+              wgmma_wait_all();
+              pin(sc);
+            }
+            decay(ks, Y);
+            if constexpr (Y) split_p();
+            if constexpr (S) split_kw(ks);
+            __syncwarp();
+            if (lane == 0) mbar_arrive(k_empty + 8 * stage(ks));   // K is read
+            const uint32_t vt_s = v_s + stage(ks) * L::V_BYTES;
+            mbar_wait(v_full + 8 * stage(ks), parity(ks));
+            if constexpr (Y || S) {
+              // acc += P_hi V + P_lo V; S += (K o w)_hi^T V + (K o w)_lo^T V
+              // (this warpgroup's columns of V).
+              pin(acc);
+              pin(st);
+              wgmma_fence();
+              if constexpr (Y) {
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk)
+                  wgmma_rs<DV>(acc, ph[kk],
+                               desc_mn_major(vt_s + kk * 2048, L::KV_BOX));
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk)
+                  wgmma_rs<DV>(acc, pl[kk],
+                               desc_mn_major(vt_s + kk * 2048, L::KV_BOX));
+              }
+              if constexpr (S) {
+                const uint32_t vc_s = vt_s + (col0 / 64) * L::KV_BOX;
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk)
+                  wgmma_rs<SN>(st, kh[kk],
+                               desc_mn_major(vc_s + kk * 2048, L::KV_BOX));
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk)
+                  wgmma_rs<SN>(st, kl[kk],
+                               desc_mn_major(vc_s + kk * 2048, L::KV_BOX));
+              }
+              wgmma_commit();
+              wgmma_wait_all();
+              pin(acc);
+              pin(st);
+            }
+            __syncwarp();
+            if (lane == 0) mbar_arrive(v_empty + 8 * stage(ks));   // V is read
+          };
+          // The key tiles of this query tile, the state flag fixed for them.
+          auto walk = [&](auto s_flag) {
+            const Flag<true> yes;
+            const Flag<false> no;
+            if (n_y > 0) step(0, yes, s_flag, no);
+            for (int ks = 1; ks < n_y; ++ks) step(ks, yes, s_flag, yes);
+            for (int ks = n_y; ks < kt_hi; ++ks) step(ks, no, s_flag, no);
+          };
+
+          // The inter-chunk term e^{ca_i} q_i (S_hi + S_lo) with key tile 0's
+          // scores in one group, and q_i . n_in on the CUDA cores under it.
+          mbar_wait(q_full + 8 * qs, (qi / QSTAGES) & 1);
+          mbar_wait(k_full + 8 * stage(0), parity(0));
+          pin(acc);
+          pin(sc);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < DK / 16; ++kk)
+            wgmma_ss_t<DV>(acc, sw128_desc(qt_s + (kk >> 2) * L::Q_BOX +
+                                           (kk & 3) * 32),
+                           desc_mn_major(sh_s + kk * 2048, L::S_BOX), kk > 0);
+#pragma unroll
+          for (int kk = 0; kk < DK / 16; ++kk)
+            wgmma_ss_t<DV>(acc, sw128_desc(qt_s + (kk >> 2) * L::Q_BOX +
+                                           (kk & 3) * 32),
+                           desc_mn_major(sl_s + kk * 2048, L::S_BOX), 1);
+          issue_qk(0);
+          wgmma_commit();
+          if (normalize) {
+            // lane tq takes the 16-byte chunks tq and tq + 4 of each box
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int row = 16 * warp + g + 8 * h;
+#pragma unroll
+              for (int bx = 0; bx < L::NBK; ++bx)
+#pragma unroll
+                for (int hc = 0; hc < 2; ++hc) {
+                  const int ch = tq + 4 * hc;
+                  const uint4 u = *reinterpret_cast<const uint4*>(
+                      sm + (qt_s - base) + bx * L::Q_BOX + row * 128 +
+                      ((ch ^ (row & 7)) << 4));
+                  const float* np_ = n_in + 64 * bx + 8 * ch;
+                  const uint32_t w4[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+                  for (int e = 0; e < 4; ++e)
+                    den[h] += lo_f(w4[e]) * np_[2 * e] +
+                              hi_f(w4[e]) * np_[2 * e + 1];
+                }
+            }
+          }
+          wgmma_wait_all();
+          pin(acc);
+          pin(sc);
+          const float e0 = ex2(ca_r[0]), e1 = ex2(ca_r[1]);
+#pragma unroll
+          for (int n = 0; n < DV / 8; ++n) {
+            acc[4 * n] *= e0;
+            acc[4 * n + 1] *= e0;
+            acc[4 * n + 2] *= e1;
+            acc[4 * n + 3] *= e1;
+          }
+          den[0] *= e0;
+          den[1] *= e1;
+          if (sw) {   // S = e^{tot} S_in before the chunk's products add in
+            const float gt = ex2(tot);
+#pragma unroll
+            for (int i = 0; i < SN / 2; ++i) st[i] *= gt;
+            walk(Flag<true>());
+          } else {
+            walk(Flag<false>());
+          }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(q_empty + 8 * qs);    // Q is read
+
+          if (active) {   // y of rows < W and < n_t
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              float d = den[h] + __shfl_xor_sync(0xffffffffu, den[h], 1);
+              d += __shfl_xor_sync(0xffffffffu, d, 2);
+              const float inv =
+                  normalize ? 1.0f / fmaxf(fabsf(d), 1.0f) : 1.0f;
+              const int row = r_lo + 8 * h;
+              const long long t = t0 + row;
+              if (row >= W || t >= n_t) continue;
+#pragma unroll
+              for (int n = 0; n < DV / 8; ++n) {
+                const int col = 8 * n + 2 * tq;
+                if (col < dv)
+                  *reinterpret_cast<__nv_bfloat162*>(yb + t * dv + col) =
+                      __floats2bfloat162_rn(acc[4 * n + 2 * h] * inv,
+                                            acc[4 * n + 2 * h + 1] * inv);
+              }
+            }
+          }
+        }
+        // n_out of the chunk: e^{tot} n_in + sum_j (K o w)
+        if (n_owner) {
+          const float gt = ex2(tot);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float sum = nsum[h] + __shfl_xor_sync(0xffffffffu, nsum[h], 1);
+            sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+            nr[h] = gt * nr[h] + sum;
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(ca_empty + 8 * b);      // ca is read
+      }
+
+      if (owner) {
+        float* Sb = S_out + static_cast<long long>(bh) * dk * dv;
+#pragma unroll
+        for (int j = 0; j < SN / 8; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = s_row + 8 * h;
+            const int col = col0 + 8 * j + 2 * tq;
+            if (row < dk && col < dv)
+              *reinterpret_cast<float2*>(
+                  Sb + static_cast<long long>(row) * dv + col) =
+                  make_float2(st[4 * j + 2 * h], st[4 * j + 2 * h + 1]);
+          }
+      }
+      if (n_owner && tq == 0) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (s_row + 8 * h < dk)
+            n_out[static_cast<long long>(bh) * dk + s_row + 8 * h] = nr[h];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 heads wider than 128: tensor cores, dv split across blocks.
+// ---------------------------------------------------------------------------
+
+constexpr int kWideDvs = 64;                 // dv columns per wide block
+constexpr int kPiece = kTile * kTile * 2;    // one [64][64] bf16 piece
 
 // d += A (64 x 8) B^T (8 x 64), A TF32 from registers (the warp's m16n8k8
 // A fragment of its 16 rows), B K-major TF32 in shared memory.
@@ -1598,11 +2016,58 @@ int launch(const void* q, const void* k, const void* v, const float* a,
   return int(cudaGetLastError());
 }
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up once through the CUDA runtime (null
+// where libcuda has none).
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor map of a contiguous bf16 [n, rows, width] at `ptr`: boxes of
+// 64 columns by `box_rows` rows of one head, 128-byte swizzle, zeros past
+// each dimension.
+bool tensor_map(CUtensorMap* map, const void* ptr, int n, int rows,
+                int width, int box_rows) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(width),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(width) * 2,
+                                 static_cast<cuuint64_t>(rows) * width * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(ptr), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int DK, int DV>
 int launch_tc(const void* q, const void* k, const void* v, const float* a,
               void* y, float* S, float* n, int bh, int n_t, int dk, int dv,
               int W, int normalize, cudaStream_t st) {
-  using L = TcSmem<DK, DV>;
+  using L = NarrowTiles<DK, DV>;
   static bool configured = false;  // once, for the largest chunk taken
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -1611,11 +2076,23 @@ int launch_tc(const void* q, const void* k, const void* v, const float* a,
     if (err != cudaSuccess) return int(err);
     configured = true;
   }
-  gla_fwd_bf16<DK, DV><<<bh, kTcThreads, L::bytes(W), st>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), a,
-      static_cast<__nv_bfloat16*>(y), S, n, n_t, dk, dv, W, normalize);
+  static int n_sm = 0;   // one block per SM walks the heads
+  if (n_sm == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return int(err);
+  }
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(&tq, q, bh, n_t, dk, 128) ||
+      !tensor_map(&tk, k, bh, n_t, dk, 64) ||
+      !tensor_map(&tv, v, bh, n_t, dv, 64))
+    return int(cudaErrorInvalidValue);
+  gla_fwd_bf16<DK, DV><<<min(bh, n_sm), L::THREADS,
+                         L::bytes((W + 63) / 64 * 64), st>>>(
+      tq, tk, tv, a, static_cast<__nv_bfloat16*>(y), S, n, bh, n_t, dk, dv,
+      W, normalize);
   return int(cudaGetLastError());
 }
 
@@ -1645,10 +2122,10 @@ int launch_wide(const void* q, const void* k, const void* v, const float* a,
   return int(cudaGetLastError());
 }
 
-// bf16 with dk, dv multiples of 16 and 16-byte aligned q, k, v (cp.async)
-// take the tensor cores: up to 128 wide at widths rounded up to 64 or 128,
-// wider (dk up to 512) in dv slices of kWideDvs; everything else takes
-// gla_fwd on the CUDA cores.
+// bf16 with dk, dv multiples of 16 and 16-byte aligned q, k, v (TMA up to
+// 128 wide, cp.async wider) take the tensor cores: up to 128 wide at
+// widths rounded up to 64 or 128, wider (dk up to 512) in dv slices of
+// kWideDvs; everything else takes gla_fwd on the CUDA cores.
 int dispatch(const void* q, const void* k, const void* v, const float* a,
              void* y, float* S, float* n, int is_bf16, int bh, int n_t,
              int dk, int dv, int W, int normalize, cudaStream_t st) {

@@ -1,27 +1,37 @@
-"""Designs of the wide bf16 GLA kernel, timed beside the committed
+"""Designs of the bf16 GLA kernels (``gla_fwd_bf16`` up to 128 wide,
+``gla_fwd_wide_bf16`` wider), timed beside the committed
 ``csrc/gla_scan.cu`` on the card, and optionally beside another tree's
 source (the parent commit's, to time a change against it in one call).
 
 A variant is the committed source with text patches (:data:`PATCHES`),
-built like the committed one; ``design`` is the committed source.
+built like the committed one; ``design`` is the committed source.  The
+narrow kernel's alternatives: two K / V stages at every width
+(``stages2``), the two consumer warpgroups' decays at once rather than
+in turns (``no_pingpong``), a block per head rather than a persistent
+grid (``per_head``), and hi and lo rounded to nearest by conversion
+instructions (``rn_split``, flash's split).
 
 ``--ablations`` adds :data:`ABLATIONS`, timed but not held (their
-outputs are wrong by construction): the design without Q S_in, without
-the state update, without P V, without the scores' wgmma, and with none
-of them (the copies, barriers and the rest of the step); without the
-proxy fence after the copies; and without the copies of the Q and K
-pieces.
+outputs are wrong by construction).  The narrow kernel (``narrow_*``)
+without the decays (P = the raw scores), without the scores' wgmma,
+without P V, without the state update, without q S_in, and with none of
+those products.  The wide kernel without Q S_in, without the state
+update, without P V, without the scores' wgmma, and with none of them
+(the copies, barriers and the rest of the step); without the proxy fence
+after the copies; and without the copies of the Q and K pieces.
 
 ``--parent PATH`` adds PATH (a ``gla_scan.cu`` of another tree) as the
 variant ``parent``.  Each variant runs through the package's own wrapper
 at every shape of :data:`SHAPES` (the bf16 rows of ``chip_smoke.py``'s
-``GLA_CASES`` wider than 128, on mLSTM draws), is held against the plain
-version at the bf16 ``gla_y`` / ``gla_state`` rule of
-tests/test_kernel_oracle.py, and is timed as ``chip_smoke.py`` times a
-kernel (10 calls in one CUDA graph, the median of 25 replays).  Two
-rounds, the second in reverse order, so with ``--parent`` the parent runs
-first and last.  The exit code is non-zero when any variant misses the
-rule.  Needs the card and ``nvcc``::
+``GLA_CASES`` on the main paths -- fleet-gla, zamba2-7b's training group
+and its prefill -- and those wider than 128, each on its draw), is held
+against the plain version at the bf16 ``gla_y`` / ``gla_state`` rule of
+tests/test_kernel_oracle.py,
+and is timed as ``chip_smoke.py`` times a kernel (10 calls in one CUDA
+graph, the median of 25 replays).  Two rounds, the second in reverse
+order, so with ``--parent`` the parent runs first and last.  The exit
+code is non-zero when any variant misses the rule.  Needs the card and
+``nvcc``::
 
     PYTHONPATH=src python -m repro_torch.kernels.gla_variants \
         [--parent OTHER_TREE/src/repro_torch/kernels/csrc/gla_scan.cu]
@@ -44,14 +54,47 @@ import torch
 from repro_torch.kernels import _build, gla_scan as gs, ref
 from repro_torch.kernels.quant_variants import graph_ms
 
-# (name, BH, T, dk, dv, chunk), bf16, normalizing, mLSTM draws
-SHAPES = (("xlstm_350m_prefill_4x4_2048_512_W256", 16, 2048, 512, 512, 256),
-          ("bf16_dk256_ragged_8_300_256_W128", 8, 300, 256, 256, 128),
-          ("fleet_xlstm_64x4_512_256_W128", 256, 512, 256, 256, 128))
+# (name, BH, T, dk, dv, chunk, normalize, draw), bf16: the narrow kernel
+# at fleet-gla's training shape, zamba2-7b's training group (B=8 x 112
+# SSM heads) and its prefill (B=4 x 112), on Mamba2 draws; the wide one on
+# mLSTM draws.
+SHAPES = (("fleet_gla_64x16_512_64_W128", 1024, 512, 64, 64, 128, False,
+           "mamba2"),
+          ("zamba2_7b_8x112_512_64_W256", 896, 512, 64, 64, 256, False,
+           "mamba2"),
+          ("zamba2_7b_prefill_4x112_2048_64_W256", 448, 2048, 64, 64, 256,
+           False, "mamba2"),
+          ("xlstm_350m_prefill_4x4_2048_512_W256", 16, 2048, 512, 512, 256,
+           True, "mlstm"),
+          ("bf16_dk256_ragged_8_300_256_W128", 8, 300, 256, 256, 128, True,
+           "mlstm"),
+          ("fleet_xlstm_64x4_512_256_W128", 256, 512, 256, 256, 128, True,
+           "mlstm"))
 # bf16 gla_y and gla_state: |got - want| <= atol + ulps * ulp_bf16(|want|)
 TOL = {"y": (2e-2, 8.0), "state": (1e-2, 64.0)}
 
-PATCHES: Dict[str, List[Tuple[str, str]]] = {"design": []}
+_STAGES = "  return DK == 64 ? (DV == 64 ? 4 : 3) : 2;"
+_PINGPONG = "constexpr bool kNarrowPingPong = true;"
+_GRID = "gla_fwd_bf16<DK, DV><<<min(bh, n_sm), L::THREADS,"
+_SPLIT = """  const uint32_t xb = __float_as_uint(x), yb = __float_as_uint(y);
+  hi = __byte_perm(xb, yb, 0x7632);
+  lo = __byte_perm(__float_as_uint(x - __uint_as_float(xb & 0xffff0000u)),
+                   __float_as_uint(y - __uint_as_float(yb & 0xffff0000u)),
+                   0x7632);
+"""
+_SPLIT_RN = """  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const __nv_bfloat162 r = __floats2bfloat162_rn(x - __low2float(h),
+                                                 y - __high2float(h));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&r);
+"""
+PATCHES: Dict[str, List[Tuple[str, str]]] = {
+    "design": [],
+    "stages2": [(_STAGES, "  return 2;")],
+    "no_pingpong": [(_PINGPONG, _PINGPONG.replace("true", "false"))],
+    "per_head": [(_GRID, _GRID.replace("min(bh, n_sm)", "bh"))],
+    "rn_split": [(_SPLIT, _SPLIT_RN)],
+}
 
 # Timing only (``--ablations``): the design with one part of its step
 # taken out, so its outputs are wrong by construction and not held.
@@ -68,7 +111,39 @@ _CUTS = {"q_s_in": (_QS, _QS.replace("inter", "false", 1)),
 _FENCE = "    fence_proxy_async();\n    __syncthreads();\n    const int c = cur.c"
 _NO_FENCE = (_FENCE, _FENCE.replace("    fence_proxy_async();\n", "", 1))
 _COPY = "    cp_async16(dst + swz(r, ch), in ? src + t * ld + col : src, in ? 16 : 0);\n"
+# the narrow kernel's parts
+_N_DECAY = "                      ex2(ca_r[e >> 1] - ((e & 1) ? cj.y : cj.x));"
+_N_QK = """              wgmma_64x64x16(sc, sw128_desc(qt_s + (kk >> 2) * L::Q_BOX +
+                                            (kk & 3) * 32),
+                             sw128_desc(kt_s + (kk >> 2) * L::KV_BOX +
+                                        (kk & 3) * 32), kk > 0);
+"""
+_N_PV = """              if constexpr (Y) {
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk)
+                  wgmma_rs<DV>(acc, ph[kk],"""
+_N_STATE = "          const bool sw = qt == n_qt - 1 && owner;"
+_N_QS = """#pragma unroll
+          for (int kk = 0; kk < DK / 16; ++kk)
+            wgmma_ss_t<DV>(acc, sw128_desc(qt_s + (kk >> 2) * L::Q_BOX +
+                                           (kk & 3) * 32),
+                           desc_mn_major(sh_s + kk * 2048, L::S_BOX), kk > 0);
+#pragma unroll
+          for (int kk = 0; kk < DK / 16; ++kk)
+            wgmma_ss_t<DV>(acc, sw128_desc(qt_s + (kk >> 2) * L::Q_BOX +
+                                           (kk & 3) * 32),
+                           desc_mn_major(sl_s + kk * 2048, L::S_BOX), 1);
+"""
+_N_CUTS = {"decay": (_N_DECAY, "                      1.0f;"),
+           "qk": (_N_QK, "              (void)kk;\n"),
+           "pv": (_N_PV, _N_PV.replace("(Y)", "(false)", 1)),
+           "state": (_N_STATE, _N_STATE.replace("qt == n_qt - 1 && owner",
+                                                "false")),
+           "q_s_in": (_N_QS, "")}
 ABLATIONS: Dict[str, List[Tuple[str, str]]] = {
+    **{f"narrow_no_{name}": [cut] for name, cut in _N_CUTS.items()},
+    "narrow_no_products": [_N_CUTS[n] for n in ("qk", "pv", "state",
+                                                "q_s_in")],
     **{f"no_{name}": [cut] for name, cut in _CUTS.items()},
     "copies_only": list(_CUTS.values()),
     "no_proxy_fence": [_NO_FENCE],
@@ -78,18 +153,19 @@ ABLATIONS: Dict[str, List[Tuple[str, str]]] = {
 
 def ptxas_lines(log: str) -> str:
     """Registers and spill bytes ``ptxas -v`` reported for each
-    ``gla_fwd_wide_bf16`` instantiation (none in a parent without it)."""
+    ``gla_fwd_bf16`` and ``gla_fwd_wide_bf16`` instantiation."""
     name, parts = None, []
     for line in log.splitlines():
-        m = re.search(r"entry function '\S*gla_fwd_wide_bf16I(\S*?)EE", line)
+        m = re.search(r"entry function '\S*(gla_fwd(?:_wide)?_bf16)I(\S*?)EE",
+                      line)
         if "entry function" in line:
-            name = m.group(1) if m else None
+            name = f"{m.group(1)}<{m.group(2)}>" if m else None
         elif name:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads|Used (\d+) registers", line)
             if m:
-                parts.append(f"<{name}> {m.group(0)}")
-    return "; ".join(parts) or "no gla_fwd_wide_bf16"
+                parts.append(f"{name} {m.group(0)}")
+    return "; ".join(parts) or "no tensor-core GLA kernel"
 
 
 def bind(lib: ctypes.CDLL):
@@ -111,16 +187,20 @@ def using(lib: ctypes.CDLL):
         gs._kernel = kernel
 
 
-def mlstm_inputs(g, BH, T, dk, dv):
+def inputs(g, BH, T, dk, dv, draw):
     """bf16 q, k, v and f32 log-decays as ``chip_smoke.gla_inputs`` draws
-    them for the mLSTM."""
+    them for Mamba2 (``"mamba2"``) or the mLSTM (``"mlstm"``)."""
     q, k, v = (torch.randn(BH, T, d, generator=g, device="cuda")
                for d in (dk, dk, dv))
     a = torch.randn(BH, T, generator=g, device="cuda")
-    gate = (2.0 * torch.randn(BH, T, 1, generator=g, device="cuda")).clamp(
-        -8.0, 8.0)
-    k = k / math.sqrt(dk) * torch.exp(gate)
-    a = torch.nn.functional.logsigmoid(a + 3.0)
+    if draw == "mlstm":
+        gate = (2.0 * torch.randn(BH, T, 1, generator=g,
+                                  device="cuda")).clamp(-8.0, 8.0)
+        k = k / math.sqrt(dk) * torch.exp(gate)
+        a = torch.nn.functional.logsigmoid(a + 3.0)
+    else:
+        k = 0.3 * k
+        a = -torch.nn.functional.softplus(a - 2.0)
     return q.bfloat16(), k.bfloat16(), v.bfloat16(), a
 
 
@@ -159,10 +239,10 @@ def main(argv=None) -> int:
         print(f"{name:9s} {ptxas_lines(log)}")
     g = torch.Generator(device="cuda").manual_seed(2)
     cases = []
-    for name, BH, T, dk, dv, W in SHAPES:
-        q, k, v, a = mlstm_inputs(g, BH, T, dk, dv)
-        want = ref.ref_gla(q, k, v, a, normalize=True)
-        cases.append((name, q, k, v, a, W, want))
+    for name, BH, T, dk, dv, W, norm, draw in SHAPES:
+        q, k, v, a = inputs(g, BH, T, dk, dv, draw)
+        want = ref.ref_gla(q, k, v, a, normalize=norm)
+        cases.append((name, q, k, v, a, W, norm, want))
     times: Dict[str, Dict[str, list]] = {}
     missed = []
     names = list(sources)
@@ -170,8 +250,8 @@ def main(argv=None) -> int:
         for name in order:
             parts = []
             with using(libs[name][0]):
-                for case, q, k, v, a, W, (y_r, S_r, n_r) in cases:
-                    y, S, n = gs.gla_scan_fwd(q, k, v, a, W, True)
+                for case, q, k, v, a, W, norm, (y_r, S_r, n_r) in cases:
+                    y, S, n = gs.gla_scan_fwd(q, k, v, a, W, norm)
                     torch.cuda.synchronize()
                     worst = max(over_tol("y", y, y_r),
                                 over_tol("state", S, S_r),
@@ -179,7 +259,7 @@ def main(argv=None) -> int:
                     if worst > 1.0 and name not in ABLATIONS:
                         missed.append(f"{name} {case}")
                     ms = graph_ms(lambda: gs.gla_scan_fwd(q, k, v, a, W,
-                                                          True))
+                                                          norm))
                     times.setdefault(name, {}).setdefault(case, []).append(ms)
                     parts.append(f"{case} {worst:.3f} of tol {ms:.5f} ms")
             print(f"{rnd} {name:9s} " + " | ".join(parts), flush=True)

@@ -23,15 +23,16 @@ version of the port) follows the kernel:
   accumulation; ``n`` from the f32 ``K o w``;
 * ``y = acc / max(|den|, 1)`` (when normalizing) rounded to bf16.
 
-``DESIGN`` is ``gla_fwd_bf16``'s choice of rounding for each product,
-``WIDE`` ``gla_fwd_wide_bf16``'s (every TF32 operand split into two TF32
-parts, ``tf32x2``: on the mLSTM's draws one TF32 rounding misses the
-bf16 y allowance at the wide heads).  Each
-case records its worst error as a fraction of the allowance, for the
-design and with each product's rounding switched to the other choice
-(``-s`` prints them).  With every rounding switched off and f32 inputs,
-the same emulation must meet the f32 rule, which checks its tiling,
-masking and padding apart from the rounding.
+``DESIGN`` is ``gla_fwd_bf16``'s choice of rounding for each product
+(each f32 operand split into two bf16 parts, ``bf16x2``), ``WIDE``
+``gla_fwd_wide_bf16``'s (every TF32 operand split into two TF32 parts,
+``tf32x2``: on the mLSTM's draws one TF32 rounding misses the bf16 y
+allowance at the wide heads).  Each case records its worst error as a
+fraction of the allowance, for the design and with each product's
+rounding switched to one bf16 rounding (``-s`` prints them).  With every
+rounding switched off and f32 inputs, the same emulation must meet the
+f32 rule, which checks its tiling, masking and padding apart from the
+rounding.
 """
 from __future__ import annotations
 
@@ -46,6 +47,7 @@ import torch
 import chip_smoke
 from repro.kernels import gla_scan as jgs
 from repro.kernels import ref as jref
+from repro_torch.kernels import _build, gla_variants
 from tests.test_kernel_oracle import TOL, _ulp, assert_oracle_close
 from tests.test_torch_flash_numerics import round_bf16, round_tf32
 
@@ -63,17 +65,39 @@ def round_tf32x2(x: torch.Tensor) -> torch.Tensor:
     return hi + lo.view(torch.float32)
 
 
-ROUND = {"bf16": round_bf16, "tf32": round_tf32, "tf32x2": round_tf32x2,
-         "f32": lambda x: x}
-# gla_fwd_bf16's operand rounding: P, S_in and K o w each enter a TF32
-# m16n8k8 product (cvt.rna); q and V in bf16 are exact in TF32.  Each
-# in bf16 (m16n8k16) would halve its product's tensor time, but misses
-# the bf16 y allowance or comes near it (test_bf16_operands_miss_...).
-DESIGN = {"p": "tf32", "s_in": "tf32", "kw": "tf32"}
+def truncate_bf16(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> bf16 -> f32, rounded toward zero (the low 16 bits cleared)."""
+    return (x.contiguous().view(torch.int32) & ~0xFFFF).view(torch.float32)
+
+
+def round_split_rz(x: torch.Tensor) -> torch.Tensor:
+    """``hi + lo`` with ``hi`` = x truncated to bf16 and ``lo`` = ``x - hi``
+    (exact) truncated to bf16 (``split_pair`` in csrc/gla_scan.cu): what
+    two bf16 products with A = hi and A = lo add up to.  Like
+    ``round_split`` (flash's round-to-nearest split) but with masks in
+    place of conversions; it misses x by less than 2^-15 |x|."""
+    hi = truncate_bf16(x)
+    return hi + truncate_bf16(x - hi)
+
+
+ROUND = {"bf16": round_bf16, "bf16x2": round_split_rz, "tf32": round_tf32,
+         "tf32x2": round_tf32x2, "f32": lambda x: x}
+# gla_fwd_bf16's operand rounding: P, S_in and K o w are each split into
+# hi = bf16(x) and lo = bf16(x - hi), both truncated (``bf16x2``), the A
+# (P, K o w) or B (S_in) operands of two bf16 wgmma products
+# (``split_pair``); q, k and V are bf16 already.  Rounding both to
+# nearest (flash's ``round_split``) would need conversion instructions,
+# which share the pipe of the decays' exponentials.  One bf16 rounding
+# would halve each product's tensor time, but misses the bf16 y
+# allowance or comes near it (test_bf16_operands_miss_...); TF32, the
+# earlier mma.sync kernel's rounding, keeps 11 significant bits to the
+# split's 16.
+DESIGN = {"p": "bf16x2", "s_in": "bf16x2", "kw": "bf16x2"}
+TF32 = {"p": "tf32", "s_in": "tf32", "kw": "tf32"}
 # gla_fwd_wide_bf16's: each of them as two TF32 parts, two m16n8k8
 # products (test_one_tf32_rounding_misses_the_tolerance_at_wide_mlstm).
 WIDE = {"p": "tf32x2", "s_in": "tf32x2", "kw": "tf32x2"}
-OTHER = {"bf16": "tf32", "tf32": "bf16"}
+OTHER = {"bf16x2": "bf16"}
 F32 = {"p": "f32", "s_in": "f32", "kw": "f32"}
 
 
@@ -281,15 +305,42 @@ def test_chunked_form_in_f32_misses_the_f32_tol_at_mamba2_decays():
 
 
 def test_bf16_operands_miss_the_tolerance_where_tf32_meets_it():
-    """Why P, S_in and K o w enter TF32 products and not bf16 ones: at
-    fleet-gla's shape (T=512, W=128, dk=dv=64, mild decays), bf16 P or
-    bf16 K o w (through the state into the next chunks' y) exceed the
-    bf16 y allowance, and bf16 S_in is past half of it."""
+    """Why P, S_in and K o w are each split into two bf16 parts and not
+    rounded to one: at fleet-gla's shape (T=512, W=128, dk=dv=64, mild
+    decays), bf16 P or bf16 K o w (through the state into the next
+    chunks' y) exceed the bf16 y allowance, and bf16 S_in is past half of
+    it; TF32 (one rounding of 11 significant bits, the earlier mma.sync
+    kernel's) meets it, and so does the split."""
     fr = case_fractions(8, 512, 64, 64, 128, False, -2.0)
     assert fr["p_bf16"][0] > 1.0, fr
     assert fr["kw_bf16"][0] > 1.0, fr
     assert fr["s_in_bf16"][0] > 0.5, fr
     assert max(fr["design"]) < 0.5, fr
+    q, k, v, a = inputs(8, 512, 64, 64, -2.0, seed=512 + 128 + 64 + 64,
+                        dtype=jnp.bfloat16)
+    want = jref.ref_gla(q, k, v, a)
+    assert max(fractions(*to_torch(q, k, v, a), 128, False, TF32,
+                         want)) < 0.5
+
+
+@pytest.mark.parametrize("shift", DECAYS)
+@pytest.mark.parametrize("BH,T,dk,dv,chunk,normalize", CASES)
+def test_split_bf16_meets_half_of_each_allowance(BH, T, dk, dv, chunk,
+                                                 normalize, shift):
+    """The kernel's split (hi and lo each truncated to bf16) meets the
+    bf16 rule within half of each allowance in every case, and its y and
+    S errors are no larger than one TF32 rounding's: the split keeps
+    about 16 significant bits to TF32's 11."""
+    q, k, v, a = inputs(BH, T, dk, dv, shift, seed=T + chunk + dk + dv,
+                        dtype=jnp.bfloat16)
+    want = jref.ref_gla(q, k, v, a, normalize=normalize)
+    args = to_torch(q, k, v, a) + [chunk, normalize]
+    split = fractions(*args, DESIGN, want)
+    tf32 = fractions(*args, TF32, want)
+    print(f"split y {split[0]:.4f} S {split[1]:.4f} n {split[2]:.4f}; "
+          f"TF32 y {tf32[0]:.4f} S {tf32[1]:.4f}")
+    assert max(split) < 0.5, split
+    assert split[0] <= tf32[0] and split[1] <= tf32[1], (split, tf32)
 
 
 # (BH, T, dk, dv, chunk): the wide kernel's heads, xLSTM's mLSTM at
@@ -302,8 +353,8 @@ WIDE_CASES = [pytest.param(2, 512, 256, 256, 128, id="mlstm_d256_W128"),
 def test_wide_design_meets_oracle_tol(BH, T, dk, dv, chunk,
                                       record_property):
     """gla_fwd_wide_bf16's rounding on mLSTM draws, normalizing, at the
-    bf16 TOL against the step recurrence; gla_fwd_bf16's single TF32
-    rounding is printed beside it."""
+    bf16 TOL against the step recurrence; one TF32 rounding of each
+    operand is printed beside it."""
     assert kernel_design(torch.bfloat16, dk, dv) == WIDE
     q, k, v, a = mlstm_inputs(BH, T, dk, dv, seed=T + chunk + dk + dv)
     want = jref.ref_gla(q, k, v, a, normalize=True)
@@ -314,7 +365,7 @@ def test_wide_design_meets_oracle_tol(BH, T, dk, dv, chunk,
     assert_oracle_close("gla_state", S.numpy(), want[1], jnp.bfloat16)
     assert_oracle_close("gla_state", n.numpy(), want[2], jnp.bfloat16)
     fr = {"wide": fractions(*args, WIDE, want),
-          "tf32": fractions(*args, DESIGN, want)}
+          "tf32": fractions(*args, TF32, want)}
     for name, (fy, fs, fn) in fr.items():
         record_property(f"y_over_tol_{name}", fy)
         record_property(f"S_over_tol_{name}", fs)
@@ -335,7 +386,7 @@ def test_one_tf32_rounding_misses_the_tolerance_at_wide_mlstm():
     q, k, v, a = mlstm_inputs(8, 512, 256, 256, seed=0)
     want = jref.ref_gla(q, k, v, a, normalize=True)
     args = to_torch(q, k, v, a) + [128, True]
-    fr = {"tf32": fractions(*args, DESIGN, want)[0],
+    fr = {"tf32": fractions(*args, TF32, want)[0],
           "wide": fractions(*args, WIDE, want)[0]}
     for keep in WIDE:   # one product left at one TF32 rounding
         fr[f"{keep}_tf32"] = fractions(*args, dict(WIDE, **{keep: "tf32"}),
@@ -352,12 +403,19 @@ def test_one_tf32_rounding_misses_the_tolerance_at_wide_mlstm():
 # ---------------------------------------------------------------------------
 
 def test_chip_smoke_bf16_gla_cases_reach_the_kernel_edges():
+    """The bf16 tensor-core rows: a ragged last chunk, normalizing at
+    W=256, dk != dv with the chunk one 64-row tile, and gla_fwd_bf16<64,
+    128> with a chunk that is not a multiple of 64 rows (the rows of a
+    TMA tile past W belong to the next chunk); and a bf16 row on the CUDA
+    cores."""
     bf16 = [c for c in chip_smoke.GLA_CASES if c[6] == "bf16"]
     tc = [c for c in bf16 if chip_smoke.gla_tensor_cores(c[3], c[4])]
     assert any(T % chunk for _, _, T, _, _, chunk, *_ in tc)
     assert any(norm and chunk == 256 for *_, chunk, _, norm, _ in tc)
     assert any(dk != dv and chunk <= TILE
                for _, _, _, dk, dv, chunk, *_ in tc)
+    assert any(dk == 64 and dv == 128 and chunk % TILE and T % chunk
+               for _, _, T, dk, dv, chunk, *_ in tc)
     assert any(not chip_smoke.gla_tensor_cores(c[3], c[4]) for c in bf16)
 
 
@@ -427,10 +485,10 @@ def test_chip_smoke_gla_route_by_shape(dk, dv, want):
 
 
 GLA_SASS = """
-        Function : _ZN12_GLOBAL__N_112gla_fwd_bf16ILi64ELi64EEEvPK13__nv_bfloat16
-        /*0010*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
-        /*0020*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;
-        /*0030*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;
+        Function : _ZN12_GLOBAL__N_112gla_fwd_bf16ILi64ELi64EEEv14CUtensorMap_stS1_S1_PKfP13__nv_bfloat16
+        /*0010*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], R24 ;
+        /*0020*/                   HGMMA.64x64x16.F32.BF16 R24, R8, gdesc[UR8], R24 ;
+        /*0030*/                   HGMMA.64x64x16.F32.BF16 R24, R8, gdesc[UR8], R24 ;
         Function : _ZN12_GLOBAL__N_17gla_fwdI13__nv_bfloat16Li64EEEvPKT_
         /*0010*/                   FFMA R1, R2, R3, R1 ;
         Function : _ZN12_GLOBAL__N_17gla_fwdIfLi128EEEvPKT_S3_S3_PKfPS1_
@@ -442,9 +500,10 @@ WIDE_SASS = """
         /*0020*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR8], R24 ;
         /*0030*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;
 """
-GLA_PTXAS = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_112gla_fwd_bf16ILi64ELi64EEEvPK13__nv_bfloat16' for 'sm_90a'
+GLA_PTXAS = """ptxas info    : (C7520) Potential Performance Loss: wgmma.mma_async instructions are serialized due to program dependence on compiler-inserted WG.AR in divergent path in the function '_ZN12_GLOBAL__N_112gla_fwd_bf16ILi64ELi64EEEv14CUtensorMap_stS1_S1_PKfP13__nv_bfloat16'
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_112gla_fwd_bf16ILi64ELi64EEEv14CUtensorMap_stS1_S1_PKfP13__nv_bfloat16' for 'sm_90a'
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
-ptxas info    : Used 154 registers, used 1 barriers
+ptxas info    : Used 168 registers, used 2 barriers
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117gla_fwd_wide_bf16ILi64EEEvPK13__nv_bfloat16' for 'sm_90a'
     0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
 ptxas info    : Used 186 registers, used 1 barriers
@@ -465,17 +524,18 @@ def test_chip_smoke_counts_hmma_per_gla_instantiation(monkeypatch):
     rows = chip_smoke.tensor_core_use(Build, GLA_PTXAS, "gla_scan")
     assert calls == [["/cuda/bin/cuobjdump", "-sass",
                       "/build/libgla_scan.so"]]
-    assert rows == {"gla_fwd_bf16<64, 64>": {"hmma": 3, "hgmma": 0,
-                                             "registers": 154,
-                                             "spill_bytes": 0},
+    assert rows == {"gla_fwd_bf16<64, 64>": {"hmma": 0, "hgmma": 3,
+                                             "registers": 168,
+                                             "spill_bytes": 0, "notes": 1},
                     "gla_fwd_wide_bf16<64>": {"hmma": 1, "hgmma": 2,
                                               "registers": 186,
                                               "spill_bytes": 12},
                     "gla_fwd<bf16, 64>": {"hmma": 0, "hgmma": 0},
                     "gla_fwd<float, 128>": {"hmma": 0, "hgmma": 0}}
-    # The CUDA-core bf16 instantiation needs none; a tensor-core one
-    # fails without, and HGMMA alone is enough.
-    Done.stdout = re.sub(r"HMMA\S*", "FFMA", GLA_SASS) + WIDE_SASS
+    # The CUDA-core bf16 instantiation needs none; a wgmma kernel fails
+    # without HGMMA (the narrow one now holds no HMMA either), and HGMMA
+    # alone is enough.
+    Done.stdout = re.sub(r"HGMMA\S*", "FFMA", GLA_SASS) + WIDE_SASS
     with pytest.raises(SystemExit):
         chip_smoke.tensor_core_use(Build, GLA_PTXAS, "gla_scan")
     Done.stdout = GLA_SASS + re.sub(r"HMMA\S*", "FFMA", WIDE_SASS)
@@ -484,3 +544,14 @@ def test_chip_smoke_counts_hmma_per_gla_instantiation(monkeypatch):
     Done.stdout = GLA_SASS + re.sub(r"H\w*MMA\S*", "FFMA", WIDE_SASS)
     with pytest.raises(SystemExit):
         chip_smoke.tensor_core_use(Build, GLA_PTXAS, "gla_scan")
+
+
+@pytest.mark.parametrize("variant", sorted({**gla_variants.PATCHES,
+                                            **gla_variants.ABLATIONS}))
+def test_gla_variants_patch_the_committed_source(variant):
+    """Each design alternative and ablation of kernels/gla_variants.py
+    applies to csrc/gla_scan.cu (every anchor once) and changes it, so
+    the card times what it names."""
+    patches = {**gla_variants.PATCHES, **gla_variants.ABLATIONS}[variant]
+    src = _build.patched_source("gla_scan", patches)
+    assert (src == _build.patched_source("gla_scan", [])) == (not patches)
