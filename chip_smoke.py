@@ -84,15 +84,37 @@ Phases (every one that fails exits non-zero; there is no CPU path):
    by kernel into the GLA kernel, the sLSTM step loop's kernels and the
    rest (``split_prefill``).  Each arch's params and cache are freed
    before the next.
-10. One JSON line of kernels; last, the ``{"ok": true, ...}`` line.
+10. LM ``fleet-moe`` (10 MoE blocks, 8 experts top-2) and ``fleet-xlstm``
+    (9 mLSTM blocks with heads of 256, 3 sLSTM blocks) of
+    benchmarks/fig_lm_fleet.py:56-63, T=512, B=64, int8 wire, as phase 6
+    on M=4: plan, steps through flash (MoE) or the GLA (mLSTM), the
+    per-token int8 gap, the f32 ``wire="none"`` check against vanilla
+    SGD.  fleet-xlstm's gap is held to the larger of ``E2E_LOSS_GAP`` and
+    its precision floor, the gap between the same ``wire="none"`` steps
+    in bf16 and in f32 (``GAP_FLOOR_STACKS``).
+11. qwen2-moe-a2.7b at its published widths, cut to 2 of 24 layers,
+    T=2,048, B=4: ``plan`` on M=1 -> ``step_fn``, 3 steps through flash at
+    head width 128.
+12. xlstm-350m at its published config, full depth, through
+    ``init_state`` -> ``make_train_step`` (AdamW) -> ``run_train_loop``,
+    B=4 x 512 tokens of the synthetic stream (T cut from 2,048: host
+    time), under deterministic algorithms: 3 steps (the GLA twice per
+    mLSTM block a step, remat), the loss on the first batch falling; a
+    run killed after step 3 and resumed from its step-2 checkpoint ends
+    bitwise equal; one profiled step.
+13. One JSON line of kernels; last, the ``{"ok": true, ...}`` line.
 
-Each main path (4, 5 and 6 per plan, 7, 8 per plan, 9 per generate call)
+Each main path (4, 5 and 6 per plan, 7, 8 per plan, 9 per generate call,
+10 per plan, 11, 12)
 zeroes every launch counter just before its steps and reads them just
 after, and fails unless each kernel of the path launched exactly as
-often as the schedule's executed segments (or the model's layers: one
-flash per attention block (whisper: per encoder layer) and one GLA per
-Mamba2 or mLSTM layer per prefill, none per decode step) imply; an AlexNet path that sends the quantizer a row
-count phase 3 did not hold fails too.
+often as the schedule's executed segments (flash per attention or MoE
+block, the GLA per Mamba2 or mLSTM block, nothing per sLSTM block, for
+each batch that passes it) or the model's layers imply (one flash per
+attention block (whisper: per encoder layer) and one GLA per Mamba2 or
+mLSTM layer per prefill, none per decode step; per flat train step
+twice that, the forward re-run under remat); an AlexNet path that sends
+the quantizer a row count phase 3 did not hold fails too.
 """
 from __future__ import annotations
 
@@ -673,6 +695,9 @@ GLA_CASES = (
     # B=64 x 4 mLSTM heads of 256, T=512, chunk 128
     ("fleet_xlstm_64x4_512_256_W128", 64 * 4, 512, 256, 256, 128, "bf16",
      True, "mlstm"),
+    # phase 12's xlstm-350m train step: B=4 x 4 mLSTM heads of 512, T=512
+    ("xlstm_350m_train_4x4_512_512_W256", 4 * 4, 512, 512, 512, 256,
+     "bf16", True, "mlstm"),
     ("f32_dk256_ragged_8_300_256_W128", 8, 300, 256, 256, 128, "f32",
      False, "mamba2"),
 )
@@ -1279,15 +1304,24 @@ def check_tree_e1_bitwise(torch, api, cnn) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# The kernel each block kind's forward launches once per batch that
+# passes it (``LMLayerStack.block_kinds``): attention and MoE blocks run
+# flash attention, Mamba2 and mLSTM blocks the GLA scan; an sLSTM block is
+# an eager step loop and launches neither.  The backwards are plain.
+BLOCK_KERNELS = {"attn": "flash_attention", "moe": "flash_attention",
+                 "mamba2": "gla_scan", "mlstm": "gla_scan"}
+
+
 def expected_lm_launches(stack, sched, wire: str) -> dict:
     """Kernel launches of one step, from the schedule's executed
     segments: each block runs once per non-empty batch that passes it
     (worker o's running batch, and every non-empty TASK-S/L stream below
-    its cut); each int8 crossing quantizes forward and backward."""
-    kinds = stack.block_kinds
-    count = {"attn": 0, "mamba2": 0}
-    for i, kind in enumerate(kinds):
-        if kind not in count:
+    its cut) and launches its kind's kernel (``BLOCK_KERNELS``); each
+    int8 crossing quantizes forward and backward."""
+    count = {"flash_attention": 0, "gla_scan": 0,
+             "int8_quant": 2 * crossings(sched) if wire == "int8" else 0}
+    for i, kind in enumerate(stack.block_kinds):
+        if kind not in BLOCK_KERNELS:
             continue
         o_batch = sched.b_o + sum(b for m, b in zip(sched.m_s, sched.b_s)
                                   if m <= i) \
@@ -1295,9 +1329,8 @@ def expected_lm_launches(stack, sched, wire: str) -> dict:
         n = int(o_batch > 0)
         n += sum(1 for m, b in zip(sched.m_s, sched.b_s) if b and i < m)
         n += int(sched.b_l > 0 and i < sched.m_l)
-        count[kind] += n
-    return {"flash_attention": count["attn"], "gla_scan": count["mamba2"],
-            "int8_quant": 2 * crossings(sched) if wire == "int8" else 0}
+        count[BLOCK_KERNELS[kind]] += n
+    return count
 
 
 def lm_steps(torch, kernels, p, params, x, y, lr: float, n_steps: int,
@@ -1451,45 +1484,65 @@ def to_float(torch, params):
     return [conv(p) for p in params]
 
 
-def run_lm_fleet(torch, api, hs, kernels, stack, m: int) -> dict:
-    """fleet-gla on ``Fleet.lm_default(m)`` with the int8 wire: plan,
-    steps through all three kernels, the per-token int8 gap against
-    ``wire="none"`` on the same cuts, and an f32 ``wire="none"`` variant
-    on the same cuts against ``reference_sgd_step``."""
+def run_lm_fleet(torch, api, hs, kernels, stack, m: int,
+                 gap_floor: bool = False) -> dict:
+    """A fleet LM stack (fleet-gla, fleet-moe, fleet-xlstm) on
+    ``Fleet.lm_default(m)`` with the int8 wire: plan, steps through the
+    stack's kernels, the per-token int8 gap against ``wire="none"`` on
+    the same cuts, and an f32 ``wire="none"`` variant on the same cuts
+    against ``reference_sgd_step``.  The gap is held to
+    ``E2E_LOSS_GAP``; with ``gap_floor`` to the larger of that and the
+    precision floor, the gap between the same ``wire="none"`` steps in
+    the stack's dtype and in f32 (``GAP_FLOOR_STACKS``)."""
     from repro_torch.models.lm.layerstack import lm_layerstack
     fleet = api.Fleet.lm_default(m=m, wire="int8")
     p = api.plan(stack, fleet, LM_B)
     sched = p.multi_schedule
-    label = f"fleet-gla M={m}"
+    T = stack.seq_len
+    label = f"{stack.cfg.name} M={m}"
     print(f"  {label} plan: {p.schedule}  T_total={p.t_total!r} s (model)")
     if crossings(sched) == 0:
         fail(f"{label}: the plan crosses no int8 wire (m > 0, b > 0)")
     gen = torch.Generator(device="cuda").manual_seed(BATCH_SEED)
     x, y = stack.dummy_batch(gen, LM_B)
-    run = lm_steps(torch, kernels, p, p.init_params(seed=SEED), x, y, LM_LR,
+    lr = LM_LR
+    run = lm_steps(torch, kernels, p, p.init_params(seed=SEED), x, y, lr,
                    LM_STEPS, label)
 
+    def none_losses(st, params):
+        """Per-token losses of LM_STEPS ``wire="none"`` steps."""
+        out = []
+        for _ in range(LM_STEPS):
+            params, loss = hs.multi_hybrid_step_from_schedule(
+                st, params, x, y, p.schedule, lr, wire="none")
+            out.append(float(loss) / T)
+        return out
+
     # the same steps with wire="none" on the same cuts: per-token gap
-    params = p.init_params(seed=SEED)
-    gaps = []
-    for k in range(LM_STEPS):
-        params, loss = hs.multi_hybrid_step_from_schedule(
-            stack, params, x, y, p.schedule, LM_LR, wire="none")
-        gaps.append(abs(float(loss) - run["losses"][k]) / LM_T)
-    del params
+    none = none_losses(stack, p.init_params(seed=SEED))
+    gaps = [abs(a - b / T) for a, b in zip(none, run["losses"])]
+    print(f"  {label} wire='none' losses per token {none}")
     print(f"  {label} int8-vs-none per-token loss gaps {gaps}")
-    if max(gaps) > E2E_LOSS_GAP:
+    # the precision floor: the same wire="none" steps in f32 from the
+    # same (bf16) init
+    stack32 = lm_layerstack(stack.cfg.variant(dtype=torch.float32), T,
+                            backend="cuda")
+    none32 = none_losses(stack32, to_float(torch, p.init_params(seed=SEED)))
+    floor = [abs(a - b) for a, b in zip(none, none32)]
+    limit = max(E2E_LOSS_GAP, max(floor)) if gap_floor else E2E_LOSS_GAP
+    print(f"  {label} f32 wire='none' losses per token {none32}")
+    print(f"  {label} precision floor (bf16-vs-f32 per-token loss gaps) "
+          f"{floor}; int8 gap limit {limit!r}")
+    if max(gaps) > limit:
         fail(f"{label}: per-token int8 loss gap {max(gaps)} exceeds "
-             f"{E2E_LOSS_GAP}")
+             f"{limit}")
 
     # f32 variant, wire none, same cuts, against vanilla SGD
-    stack32 = lm_layerstack(stack.cfg.variant(dtype=torch.float32), LM_T,
-                            backend="cuda")
     p32 = to_float(torch, p.init_params(seed=SEED))
     res = compare_updates(
         torch, hs, stack32, p32, x, y,
         lambda q: hs.multi_hybrid_step_from_schedule(
-            stack32, q, x, y, p.schedule, LM_LR, wire="none"), LM_LR)
+            stack32, q, x, y, p.schedule, lr, wire="none"), lr)
     print(f"  {label} f32 reference check: loss rel gap "
           f"{res['loss_rel_gap']!r}; worst leaf {res['worst']}")
     if not res["ok"]:
@@ -1498,29 +1551,196 @@ def run_lm_fleet(torch, api, hs, kernels, stack, m: int) -> dict:
     del p32
     torch.cuda.empty_cache()
     run.update({"plan": str(p.schedule), "t_total": p.t_total,
-                "int8_gap_per_token": max(gaps),
+                "int8_gap_per_token": max(gaps), "gap_limit": limit,
+                "precision_floor": floor,
                 "reference": {"loss_rel_gap": res["loss_rel_gap"],
                               "worst": res["worst"]}})
     return run
 
 
-def run_zamba2_7b(torch, api, kernels, stack) -> dict:
-    """zamba2-7b at full width, one group deep: plan, then steps."""
-    p = api.plan(stack, api.Fleet.lm_default(m=1, wire="int8"), Z7_B)
-    label = "zamba2-7b"
+def run_deep_cut(torch, api, kernels, stack, B: int, lr: float,
+                 n_steps: int, needs: tuple) -> dict:
+    """A published config at full width, its depth cut (zamba2-7b one
+    group, qwen2-moe-a2.7b 2 layers), on ``Fleet.lm_default(m=1)`` with
+    the int8 wire: plan, then steps; each kernel in ``needs`` must
+    launch."""
+    p = api.plan(stack, api.Fleet.lm_default(m=1, wire="int8"), B)
+    label = stack.cfg.name
     print(f"  {label} plan: {p.schedule}  T_total={p.t_total!r} s (model)")
     n_params = sum(m.param_count for m in stack.cut_meta())
     print(f"  {label} parameters: {n_params}")
     gen = torch.Generator(device="cuda").manual_seed(BATCH_SEED)
-    x, y = stack.dummy_batch(gen, Z7_B)
-    run = lm_steps(torch, kernels, p, p.init_params(seed=SEED), x, y, Z7_LR,
-                   Z7_STEPS, label)
-    if run["launches"]["flash_attention"] == 0 or \
-            run["launches"]["gla_scan"] == 0:
-        fail(f"{label}: flash attention or the GLA scan never launched")
+    x, y = stack.dummy_batch(gen, B)
+    run = lm_steps(torch, kernels, p, p.init_params(seed=SEED), x, y, lr,
+                   n_steps, label)
+    if any(run["launches"][k] == 0 for k in needs):
+        fail(f"{label}: one of {needs} never launched: {run['launches']}")
     torch.cuda.empty_cache()
     run.update({"plan": str(p.schedule), "params": n_params})
     return run
+
+
+# ---------------------------------------------------------------------------
+# Phases 10-12: training the moe and xlstm families; the flat train loop.
+# ---------------------------------------------------------------------------
+
+# fleet-xlstm's int8-vs-none gap is held to the larger of E2E_LOSS_GAP
+# and its precision floor: how far the same wire="none" steps move the
+# per-token loss when run in f32 instead of bf16 from the same init.  At
+# phase 6's lr the JAX reference's own int8 wire moves this stack past
+# E2E_LOSS_GAP, and the port's moves it as far, step for step
+# (tests/test_torch_int8_gap.py; tests/int8_gap_probe.py prints both
+# packages' gaps and floors over more steps).
+GAP_FLOOR_STACKS = ("fleet-xlstm",)
+# qwen2-moe-a2.7b at its published widths, cut to 2 of 24 layers, routes
+# 2,048-token sequences in groups of 1,024.
+QM_REDUCED = {"n_layers": 2}
+QM_B, QM_T, QM_LR, QM_STEPS = 4, 2048, 1e-4, 3
+# xlstm-350m through make_train_step (AdamW) and run_train_loop at its
+# published config, full depth: FLAT_STEPS steps, then a run killed after
+# step FLAT_FAIL_AT and resumed from its step-FLAT_CKPT_EVERY checkpoint.
+# T is cut from 2,048 to 512: at 2,048 a step took 20.7-24.7 s (548k
+# kernels, the sLSTM step loops' forward, remat forward and backward;
+# device busy 0.055) and the phase 819 s of the smoke's 1,200.
+FLAT_B, FLAT_T, FLAT_LR, FLAT_STEPS = 4, 512, 1e-3, 3
+FLAT_CKPT_EVERY, FLAT_FAIL_AT = 2, 3
+
+
+def flat_launches(cfg) -> dict:
+    """Kernel launches of one ``make_train_step`` step on ``build_model``:
+    a forward's (``serve_launches``), twice with ``cfg.remat``, whose
+    blocks re-run their forward in the backward."""
+    k = 2 if cfg.remat else 1
+    return {name: n * k for name, n in serve_launches(cfg).items()}
+
+
+@contextlib.contextmanager
+def deterministic(torch, algorithms: bool = True):
+    """cuDNN's deterministic algorithms; with ``algorithms`` also
+    PyTorch's deterministic implementations (an ``index_add`` by sort,
+    not by atomics; a warning where an op has none), new tensors left
+    unfilled.  The flags are restored after."""
+    import torch.utils.deterministic as det
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.deterministic, cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             det.fill_uninitialized_memory)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    if algorithms:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        det.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = flags[:2]
+        if algorithms:
+            torch.use_deterministic_algorithms(flags[2], warn_only=flags[3])
+            det.fill_uninitialized_memory = flags[4]
+
+
+def run_flat_loop(torch, kernels, lm_model, optim, train, make_batch_fn,
+                  shape, cfg, tmp: Path) -> dict:
+    """``cfg`` through ``init_state`` -> ``make_train_step`` (AdamW) ->
+    ``run_train_loop`` on the synthetic token stream (``shape``): the
+    launch counters zeroed just before ``FLAT_STEPS`` steps and read just
+    after, against ``flat_launches``; finite losses, and the trained
+    params' loss on the first batch below the initial one; then a run
+    killed after step ``FLAT_FAIL_AT`` and a run resumed from its
+    step-``FLAT_CKPT_EVERY`` checkpoint, whose state must be bitwise the
+    uninterrupted run's; one profiled step."""
+    label = f"{cfg.name} flat"
+    model = lm_model.build_model(cfg)
+    opt = optim.AdamW(lr=FLAT_LR)
+    step = train.make_train_step(model, opt)
+    batch_fn = make_batch_fn(cfg, shape, seed=BATCH_SEED)
+
+    def fresh():
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        return train.init_state(model, opt, g, "cuda")
+
+    ms = []
+
+    def timed(state, batch, k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(state, batch, k)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    state = fresh()
+    n_params = sum(t.numel() for _, t in leaves(state["params"]))
+    print(f"  {label} parameters: {n_params}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    zero_counters(kernels)
+    ref = train.run_train_loop(
+        train.LoopConfig(FLAT_STEPS, log_every=1), state, timed, batch_fn,
+        log=lambda line: print(f"  {label} {line}"))
+    launches = read_counters(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    per_step = flat_launches(cfg)
+    want = {k: v * FLAT_STEPS for k, v in per_step.items()}
+    losses = [h["loss"] for h in ref["history"]]
+    print(f"  {label} losses {losses}")
+    print(f"  {label} step ms {ms}; peak memory {peak / 2 ** 30:.3f} GiB "
+          f"({start / 2 ** 30:.3f} GiB allocated before the first step)")
+    print(f"  {label} launches {launches} (expected {want})")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"{label}: non-finite loss {losses}")
+    if launches != want:
+        fail(f"{label}: launches {launches}, expected {want}")
+    # each step draws a new batch, whose loss moves by more than a step's
+    # progress; so the trained params are held to the first batch
+    dev = next(leaves(ref["state"]["params"]))[1].device
+    with torch.no_grad():
+        first = {k: torch.as_tensor(v, device=dev)
+                 for k, v in batch_fn(0).items()}
+        after = float(model.loss_fn(ref["state"]["params"], first))
+    print(f"  {label} loss on batch 0: {losses[0]} at init, {after} after "
+          f"{FLAT_STEPS} steps")
+    if not after < losses[0]:
+        fail(f"{label}: the loss on batch 0 did not fall: {losses[0]} -> "
+             f"{after}")
+
+    kw = dict(ckpt_every=FLAT_CKPT_EVERY, ckpt_dir=str(tmp), log_every=1)
+    t0 = time.perf_counter()
+    try:
+        train.run_train_loop(
+            train.LoopConfig(FLAT_STEPS, fail_at=FLAT_FAIL_AT, **kw),
+            fresh(), step, batch_fn, log=None)
+    except train.InjectedFailure as e:
+        print(f"  {label} killed: {e}")
+    else:
+        fail(f"{label}: the injected failure never fired")
+    t1 = time.perf_counter()
+    out = train.run_train_loop(train.LoopConfig(FLAT_STEPS, **kw), fresh(),
+                               step, batch_fn, log=None)
+    t2 = time.perf_counter()
+    equal = all(torch.equal(a, b) for (_, a), (_, b) in
+                zip(leaves(out["state"]), leaves(ref["state"])))
+    tail = [h["loss"] for h in out["history"]]
+    print(f"  {label} killed after step {FLAT_FAIL_AT} "
+          f"({(t1 - t0) * 1e3:.1f} ms with its checkpoint at step "
+          f"{FLAT_CKPT_EVERY}), resumed from step {out['resumed_from']} "
+          f"({(t2 - t1) * 1e3:.1f} ms): state bitwise equal {equal}; "
+          f"losses after the resume {tail}")
+    if out["resumed_from"] != FLAT_CKPT_EVERY or not equal or \
+            tail != losses[FLAT_CKPT_EVERY:]:
+        fail(f"{label}: the resumed run differs from the uninterrupted one")
+    del out
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in batch_fn(FLAT_STEPS).items()}
+    prof = profile_call(torch, lambda: step(ref["state"], batch, FLAT_STEPS),
+                        label)
+    return {"losses": losses, "loss_after_on_batch0": after,
+            "step_ms": ms, "peak_bytes": peak,
+            "start_bytes": start, "params": n_params, "launches": launches,
+            "launches_per_step": per_step, "kill_ms": (t1 - t0) * 1e3,
+            "resume_ms": (t2 - t1) * 1e3, "resume_bitwise": equal,
+            "profile": prof}
 
 
 # ---------------------------------------------------------------------------
@@ -1937,6 +2157,11 @@ def main() -> int:
     from repro_torch.kernels import int8_quant as iq
     from repro_torch.kernels import ref
     from repro_torch.models import cnn
+    from repro_torch import optim
+    from repro_torch import train
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import make_lm_batch_fn
+    from repro_torch.models.lm import fleet_configs
     from repro_torch.models.lm import model as lm_model
     from repro_torch.models.lm.fleet_configs import FLEET_GLA
     from repro_torch.models.lm.layerstack import lm_layerstack
@@ -1997,11 +2222,7 @@ def main() -> int:
     # 5. AlexNet through Plan.train, cuDNN held to deterministic algorithms
     print(f"main path: AlexNet Plan.train, B={B}, wire=int8, "
           f"{TRAIN_STEPS} steps, lr {LR}")
-    flags = (torch.backends.cudnn.deterministic,
-             torch.backends.cudnn.benchmark)
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
-    try:
+    with deterministic(torch, algorithms=False):
         with tempfile.TemporaryDirectory() as tmp:
             train_runs = {m: run_train(
                 torch, api, loop, store, hs, kernels, cnn, data_mod,
@@ -2010,9 +2231,6 @@ def main() -> int:
         print("measure_profile(alexnet()) on the card, B=64:")
         measured = check_measure_profile(torch, profiler, cnn,
                                          runs[1]["plan"])
-    finally:
-        (torch.backends.cudnn.deterministic,
-         torch.backends.cudnn.benchmark) = flags
     torch.cuda.empty_cache()
 
     # 6. LM fleet-gla
@@ -2028,8 +2246,9 @@ def main() -> int:
     z7cfg = zamba2_7b.FULL.variant(n_layers=6, shared_attn_every=6)
     print(f"main path: zamba2-7b widths, n_layers=6 + 1 attention block, "
           f"T={LM_T}, B={Z7_B}, lr {Z7_LR}")
-    z7 = run_zamba2_7b(torch, api, kernels,
-                       lm_layerstack(z7cfg, LM_T, backend="cuda"))
+    z7 = run_deep_cut(torch, api, kernels,
+                      lm_layerstack(z7cfg, LM_T, backend="cuda"), Z7_B, Z7_LR,
+                      Z7_STEPS, ("flash_attention", "gla_scan"))
     print(f"  zamba2-7b step ms {steady(z7['step_ms'])}")
 
     # 8. AlexNet on fig_tree's fleets: step_fn per E, then Plan.train
@@ -2046,9 +2265,7 @@ def main() -> int:
                         **explain_plan(tree_runs[e]["plan"], label)}
     for e, r in tree_runs.items():
         print(f"  tree E={e} step ms {steady(r['step_ms'])}")
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
-    try:
+    with deterministic(torch, algorithms=False):
         tree_e1 = check_tree_e1_bitwise(torch, api, cnn)
         print(f"main path: AlexNet Plan.train on the E=2 tree, B={B}, "
               f"wire=int8, {TRAIN_STEPS} steps, lr {LR}")
@@ -2056,9 +2273,6 @@ def main() -> int:
             tree_train = run_train(torch, api, loop, store, hs, kernels, cnn,
                                    data_mod, tree_fleet(api, 2), "tree E=2",
                                    Path(tmp))
-    finally:
-        (torch.backends.cudnn.deterministic,
-         torch.backends.cudnn.benchmark) = flags
     torch.cuda.empty_cache()
 
     # 9. serving: the published configs, full depth, through generate
@@ -2071,6 +2285,44 @@ def main() -> int:
                                      engine, arch)
         torch.cuda.empty_cache()
 
+    # 10. hierarchical training for the moe and xlstm families
+    print(f"main path: LM fleet-moe and fleet-xlstm (published configs), "
+          f"T={LM_T}, B={LM_B}, M=4, wire=int8, lr {LM_LR}")
+    fam_runs = {}
+    for cfg in (fleet_configs.FLEET_MOE, fleet_configs.FLEET_XLSTM):
+        fam_runs[cfg.name] = run_lm_fleet(
+            torch, api, hs, kernels,
+            lm_layerstack(cfg, LM_T, backend="cuda"), 4,
+            gap_floor=cfg.name in GAP_FLOOR_STACKS)
+    for name, r in fam_runs.items():
+        print(f"  {name} M=4 step ms {steady(r['step_ms'])}")
+
+    # 11. qwen2-moe-a2.7b, full width, 2 of 24 layers
+    qcfg = configs.get_arch("qwen2-moe-a2.7b").lm.variant(**QM_REDUCED)
+    print(f"main path: qwen2-moe-a2.7b widths, reduced {QM_REDUCED}, "
+          f"T={QM_T}, B={QM_B}, lr {QM_LR}, head width {qcfg.hd}")
+    if qcfg.hd != 128:
+        fail(f"qwen2-moe-a2.7b: head width {qcfg.hd}, expected 128")
+    qm = run_deep_cut(torch, api, kernels,
+                      lm_layerstack(qcfg, QM_T, backend="cuda"), QM_B, QM_LR,
+                      QM_STEPS, ("flash_attention",))
+    print(f"  qwen2-moe-a2.7b step ms {steady(qm['step_ms'])}")
+
+    # 12. xlstm-350m through make_train_step and run_train_loop
+    xcfg = configs.get_arch("xlstm-350m").lm.variant(use_flash=True,
+                                                      use_gla_kernel=True)
+    print(f"main path: xlstm-350m (published config, full depth) through "
+          f"make_train_step (AdamW, lr {FLAT_LR}) and run_train_loop, "
+          f"B={FLAT_B}, T={FLAT_T}, remat {xcfg.remat}; deterministic "
+          f"algorithms")
+    with deterministic(torch), tempfile.TemporaryDirectory() as tmp:
+        flat = run_flat_loop(torch, kernels, lm_model, optim, train,
+                             make_lm_batch_fn,
+                             ShapeSpec("flat", FLAT_T, FLAT_B, "train"),
+                             xcfg, Path(tmp))
+    print(f"  xlstm-350m flat step ms {steady(flat['step_ms'])}")
+    torch.cuda.empty_cache()
+
     path_runs = {"alexnet_M1": runs[1], "alexnet_M4": runs[4],
                  "alexnet_train_M1": train_runs[1],
                  "alexnet_train_M4": train_runs[4],
@@ -2078,7 +2330,10 @@ def main() -> int:
                  "zamba2_7b": z7,
                  **{f"alexnet_tree_E{e}": r for e, r in tree_runs.items()},
                  "alexnet_train_tree_E2": tree_train,
-                 **{f"serve_{a}": r for a, r in serve_runs.items()}}
+                 **{f"serve_{a}": r for a, r in serve_runs.items()},
+                 "fleet_moe_M4": fam_runs["fleet-moe"],
+                 "fleet_xlstm_M4": fam_runs["fleet-xlstm"],
+                 "qwen2_moe_2_layers": qm, "xlstm_350m_flat": flat}
     paths = {k: r["launches"] for k, r in path_runs.items()}
     held = set(alexnet_rows)
     seen = {k: r["wire_rows"] for k, r in path_runs.items()
@@ -2108,13 +2363,15 @@ def main() -> int:
         "alexnet_tree_e1_vs_star": tree_e1,
         "alexnet_train_tree_E2": tree_train,
         "measure_profile": measured,
-        "zamba2_7b": z7, "serve": serve_runs, "launches": paths,
+        "zamba2_7b": z7, "serve": serve_runs, "fleet_families": fam_runs,
+        "qwen2_moe_2_layers": qm, "xlstm_350m_flat": flat,
+        "launches": paths,
         "tensor_cores": tensor_cores,
         "quantizer_cases": list(qcases.values()),
         "flash_cases": list(fcases.values()),
         "gla_cases": list(gcases.values())}, default=str))
 
-    # 10. kernels line
+    # 13. kernels line
     def entry(name, source, replaces, main, cases, ok_key):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,

@@ -45,21 +45,11 @@ from repro_torch.core.hybrid_step import (hybrid_step_from_schedule,
                                           tree_stream_edges)
 from repro_torch.core.layerstack import LayerStack, as_layerstack
 from repro_torch.core.wire import apply_wire, validate_wire
+from repro_torch.device import resolve_device
 
 __all__ = ["Fleet", "Plan", "plan", "plan_many", "as_layerstack"]
 
 OBJECTIVES = _scheduler.OBJECTIVES
-
-
-def _resolve_device(device: Optional[Union[str, torch.device]]
-                   ) -> torch.device:
-    """``None`` means the card; raise rather than fall back to the CPU."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("repro_torch runs on a CUDA device by default "
-                           "and none is available; pass device='cpu' to "
-                           "run on the CPU")
-    return dev
 
 
 @dataclasses.dataclass
@@ -191,7 +181,7 @@ class Plan:
         if cloud_mesh is not None and self.fleet.topology != TREE:
             raise ValueError("cloud_mesh is a tree-topology option; this "
                              f"plan's fleet is {self.fleet.topology!r}")
-        dev = _resolve_device(device)
+        dev = resolve_device(device)
         sched = self.schedule
         wire = self.wire
         if self.fleet.topology == TREE:
@@ -213,7 +203,7 @@ class Plan:
         cut-point), drawn from a ``torch.Generator`` seeded with ``seed``
         on ``device`` (default ``cuda``)."""
         stack = self._require_model()
-        dev = _resolve_device(device)
+        dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         return stack.init(gen, dev)
 
@@ -251,7 +241,7 @@ class Plan:
                 f"star topology; this plan's fleet is "
                 f"topology={self.fleet.topology!r}")
         stack = self._require_model()
-        dev = _resolve_device(device)
+        dev = resolve_device(device)
         cfg = HierLoopConfig(
             total_steps=steps, batch=self.B, lr=lr,
             resched_every=resched_every, ema=ema, seed=seed,

@@ -32,7 +32,7 @@ order.
 from __future__ import annotations
 
 import dataclasses
-from typing import (Any, Callable, Dict, Iterator, List, Optional,
+from typing import (Any, Callable, Dict, List, Optional,
                     Sequence, Tuple)
 
 import torch
@@ -40,49 +40,22 @@ import torch
 from repro_torch.core.cost_model import MultiSchedule, Schedule
 from repro_torch.core.layerstack import as_layerstack
 from repro_torch.core.wire import wire_act_bytes, wire_codec, wire_grad_bytes
+from repro_torch.tree import grad, grad_leaves
+from repro_torch.tree import tree_map as _map
 
 Tree = Dict[str, Any]          # nested dicts of tensors
 Params = List[Tree]            # one tree per cut-point
 Batch = Tuple[torch.Tensor, torch.Tensor]
 
 
-def _map(fn: Callable[..., torch.Tensor], tree: Tree, *rest: Tree) -> Tree:
-    """``fn`` over the leaves of ``tree`` (and the matching leaves of
-    ``rest``), keeping the nesting."""
-    return {k: _map(fn, v, *(r[k] for r in rest)) if isinstance(v, dict)
-            else fn(v, *(r[k] for r in rest)) for k, v in tree.items()}
-
-
-def _flatten(tree: Tree) -> List[torch.Tensor]:
-    """The leaves of ``tree`` in sorted key order."""
-    out: List[torch.Tensor] = []
-    for k in sorted(tree):
-        v = tree[k]
-        out.extend(_flatten(v) if isinstance(v, dict) else [v])
-    return out
-
-
-def _unflatten(tree: Tree, flat: Iterator[torch.Tensor]) -> Tree:
-    """``tree``'s nesting filled from ``flat`` (in :func:`_flatten`'s
-    order)."""
-    return {k: _unflatten(tree[k], flat) if isinstance(tree[k], dict)
-            else next(flat) for k in sorted(tree)}
-
-
 def _leaves(params: Params, n: int) -> Params:
     """Fresh autograd leaves over the storage of ``params[:n]``."""
-    return [_map(lambda v: v.detach().requires_grad_(True), p)
-            for p in params[:n]]
+    return grad_leaves(params[:n])
 
 
 def _grads(loss: torch.Tensor, copies: Sequence[Params]) -> List[Params]:
     """d loss / d every leaf of every copy (zeros where unused)."""
-    flat = [_flatten(p) for cp in copies for p in cp]
-    xs = [t for f in flat for t in f]
-    gs = torch.autograd.grad(loss, xs, allow_unused=True)
-    it = iter(torch.zeros_like(x) if g is None else g
-              for x, g in zip(xs, gs))
-    return [[_unflatten(p, it) for p in cp] for cp in copies]
+    return grad(loss, list(copies))
 
 
 def _add(g: Tree, other: Tree) -> Tree:

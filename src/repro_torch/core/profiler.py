@@ -24,8 +24,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.cost_model import WORKERS, HierProfile, MultiProfile
-from repro_torch.core.hybrid_step import _flatten, _map
 from repro_torch.core.layerstack import as_layerstack
+from repro_torch.device import resolve_device
+from repro_torch.tree import grad_leaves, leaves
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,9 +148,8 @@ def measure_profile(model, rel_speed: Dict[str, float] | None = None,
     divides the measured time (2.0 => 2x faster than this device); the
     default calibrates the measuring device as the "edge" tier.
     """
-    from repro_torch.api import _resolve_device
     stack = as_layerstack(model)
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     rel_speed = rel_speed or {"device": 1 / 13.0, "edge": 1.0, "cloud": 11.0}
     metas = stack.cut_meta()
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -214,8 +214,8 @@ def _seg_bwd(stack, params, x: torch.Tensor, i: int) -> None:
     """Cut ``i``'s forward and the gradient of ``sum(y**2)`` with
     respect to its params and (when floating) its input."""
     ps = list(params)
-    ps[i] = _map(lambda v: v.detach().requires_grad_(True), params[i])
-    wrt = _flatten(ps[i])
+    ps[i] = grad_leaves(params[i])
+    wrt = leaves(ps[i])
     if x.is_floating_point():
         x = x.detach().requires_grad_(True)
         wrt.append(x)

@@ -1,8 +1,8 @@
 """LayerStack adapter for the LM model zoo (DESIGN.md §8).
 
-The port of :mod:`repro.models.lm.layerstack` for the ``dense`` and
-``zamba`` families.  An LM config's blocks become an ordered chain of
-cut-points for the planner and the hybrid engine::
+The port of :mod:`repro.models.lm.layerstack`.  An LM config's blocks
+become an ordered chain of cut-points for the planner and the hybrid
+engine::
 
     [embed]  [block_1 ... block_K]  [head]
 
@@ -11,17 +11,39 @@ cut-points for the planner and the hybrid engine::
 * every block is one cut-point with the JAX package's analytic meta
   (matmul FLOPs, params, bf16 forward / f32 backward wire bytes), so
   profiles and schedules are ``==`` across the two packages.
-* ``zamba``: Mamba2 (SSD) blocks with an attention block after every
+
+Families and their block kinds:
+
+* ``dense``: ``attn`` blocks (GQA + MLP, the local/global window pattern
+  kept per layer).
+* ``moe``: ``moe`` blocks, the dense skeleton with a routed-MoE MLP, in
+  the ``dense`` window pattern.
+* ``zamba``: ``mamba2`` (SSD) blocks with an ``attn`` block after every
   ``shared_attn_every``-th one.  The cut-point protocol needs disjoint
   per-cut params, so the recurring attention block is untied: each
   occurrence is its own cut-point with its own weights.
+* ``xlstm``: ``mlstm`` blocks (the GLA primitive) with an ``slstm``
+  block at every ``slstm_every``-th position.
 
-``backend="cuda"`` routes attention blocks onto the CUDA flash-attention
-kernel and Mamba2 blocks onto the CUDA GLA scan (through
-:mod:`repro_torch.kernels.ops`; for tensors on the CPU the kernels'
-plain versions run).  ``"ref"`` keeps the plain PyTorch path.  The meta
-is backend-independent.  ``moe`` and ``xlstm`` are not ported yet, and
-the HLO cross-checks of the JAX module have no counterpart here.
+``encdec`` (a second input stream) and prefix-embedding configs
+(``n_frontend_tokens > 0``) raise ``ValueError``: the chain is linear.
+
+MoE caveat: ``apply_moe`` groups tokens; a sub-batch of ``b`` samples
+dispatches ``b*T`` tokens, which must be a multiple of
+``min(group_size, b*T)``.  Which tokens a full expert drops depends on
+the group's composition, so the hybrid step is exactly batch-B SGD when
+capacity is lossless or when every group the split runs is one of the
+whole batch's: every group one sequence (``group_size == seq_len``), or
+every MoE block run on merged streams (the merge keeps the batch's
+order) whose sub-batches hold whole groups; within routing-drop noise
+otherwise.
+
+``backend="cuda"`` routes attention and MoE blocks onto the CUDA
+flash-attention kernel and Mamba2 and mLSTM blocks onto the CUDA GLA
+scan (through :mod:`repro_torch.kernels.ops`; for tensors on the CPU the
+kernels' plain versions run).  ``"ref"`` keeps the plain PyTorch path.
+The meta is backend-independent.  The HLO cross-checks of the JAX
+module have no counterpart here.
 """
 from __future__ import annotations
 
@@ -33,6 +55,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.layerstack import CutMeta, LayerStack
 from repro_torch.models.lm import ssm as ssm_mod
+from repro_torch.models.lm import xlstm as xlstm_mod
 from repro_torch.models.lm.common import truncated_normal_init
 from repro_torch.models.lm.model import (LMConfig, _apply_block,
                                          _apply_norm, _group_layout,
@@ -40,8 +63,7 @@ from repro_torch.models.lm.model import (LMConfig, _apply_block,
 
 Params = List[Any]
 
-SUPPORTED_FAMILIES = ("dense", "zamba")
-LATER_FAMILIES = ("moe", "xlstm")
+SUPPORTED_FAMILIES = ("dense", "moe", "zamba", "xlstm")
 
 # cfg.family -> the block-family label used in benchmarks/docs.
 FAMILY_LABELS = {"dense": "attention", "moe": "moe", "zamba": "gla",
@@ -50,17 +72,12 @@ FAMILY_LABELS = {"dense": "attention", "moe": "moe", "zamba": "gla",
 
 @dataclasses.dataclass(frozen=True)
 class _BlockSpec:
-    kind: str          # embed | attn | mamba2 | head
+    kind: str          # embed | attn | moe | mamba2 | mlstm | slstm | head
     window: int = 0    # attention window (0 = full) — attn blocks only
 
 
 def _block_plan(cfg: LMConfig) -> List[_BlockSpec]:
     """The linear cut-point chain of one LM config."""
-    if cfg.family in LATER_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family} family has no LayerStack adapter yet "
-            f"for training on the hierarchy (ROADMAP.md, queue 1 item 10: "
-            f"training for the MoE, xlstm and encdec families)")
     if cfg.family not in SUPPORTED_FAMILIES:
         raise ValueError(
             f"family {cfg.family!r} has no LayerStack adapter "
@@ -69,14 +86,17 @@ def _block_plan(cfg: LMConfig) -> List[_BlockSpec]:
         raise ValueError("prefix-embedding (VLM/audio) configs are not "
                          "cut-point schedulable")
     plan = [_BlockSpec("embed")]
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
+        if cfg.family == "moe" and cfg.moe is None:
+            raise ValueError("a moe config needs moe")
+        kind = "moe" if cfg.family == "moe" else "attn"
         ng, g, _ = _group_layout(cfg)
         for i in range(cfg.n_layers):
             # gemma3-style pattern: each group is (g-1) local + 1 global.
             is_global = ng > 0 and i < ng * g and i % g == g - 1
-            plan.append(_BlockSpec("attn",
+            plan.append(_BlockSpec(kind,
                                    0 if is_global else cfg.sliding_window))
-    else:
+    elif cfg.family == "zamba":
         if cfg.ssm is None or cfg.shared_attn_every <= 0:
             raise ValueError("a zamba config needs ssm and "
                              "shared_attn_every > 0")
@@ -85,6 +105,13 @@ def _block_plan(cfg: LMConfig) -> List[_BlockSpec]:
             plan.append(_BlockSpec("mamba2"))
             if (i + 1) % g == 0:
                 plan.append(_BlockSpec("attn", cfg.sliding_window))
+    else:
+        if cfg.xlstm is None:
+            raise ValueError("an xlstm config needs xlstm")
+        g = cfg.xlstm.slstm_every
+        for i in range(cfg.n_layers):
+            plan.append(_BlockSpec(
+                "slstm" if g > 0 and i % g == g - 1 else "mlstm"))
     plan.append(_BlockSpec("head"))
     return plan
 
@@ -116,6 +143,23 @@ def _mlp_meta(cfg: LMConfig, T: int) -> Tuple[int, float]:
     return 3 * D * dff, float(6 * T * D * dff)
 
 
+def _moe_meta(cfg: LMConfig, T: int) -> Tuple[int, float]:
+    moe = cfg.moe
+    D = cfg.d_model
+    E, K, Fe = moe.n_experts, moe.top_k, moe.d_ff_expert
+    G = min(moe.group_size, T)          # nominal single-sample grouping
+    C = max(int(G * K * moe.capacity_factor / E), 1)
+    params = D * E + 3 * E * D * Fe
+    # router + dispatch/combine einsums + expert SwiGLU + one-hot builds.
+    per_tok = 2 * D * E + 4 * E * C * D + 6 * E * C * D * Fe / G \
+        + 4 * K * E * C
+    if moe.n_shared > 0:
+        width = moe.d_ff_shared or moe.n_shared * Fe
+        params += 3 * D * width
+        per_tok += 6 * D * width
+    return params, float(T * per_tok)
+
+
 def _gla_flops(nh: int, dk: int, dv: int, W: int, T: int) -> float:
     """Chunked-GLA matmul FLOPs for T tokens: intra-chunk quadratic scores
     (2*W*dk) + intra AV (2*W*dv) + chunk-state build and query (4*dk*dv),
@@ -136,6 +180,33 @@ def _mamba2_meta(cfg: LMConfig, T: int) -> Tuple[int, float]:
         + 2 * T * sc.d_conv * conv_ch \
         + _gla_flops(nh, sc.d_state, sc.head_dim, W, T) \
         + 2 * T * di * D
+    return params, float(flops)
+
+
+def _mlstm_meta(cfg: LMConfig, T: int) -> Tuple[int, float]:
+    xc = cfg.xlstm
+    D = cfg.d_model
+    di = xc.expand * D
+    hd = di // xc.n_heads
+    params = D * 2 * di + xc.d_conv * di + di + 3 * di * di \
+        + di * 2 * xc.n_heads + 2 * xc.n_heads + di + di * D \
+        + _norm_params(cfg)
+    W = min(xc.chunk, T)
+    flops = 2 * T * D * 2 * di + 2 * T * xc.d_conv * di \
+        + 6 * T * di * di + 2 * T * di * 2 * xc.n_heads \
+        + _gla_flops(xc.n_heads, hd, hd, W, T) \
+        + 2 * T * di * D
+    return params, float(flops)
+
+
+def _slstm_meta(cfg: LMConfig, T: int) -> Tuple[int, float]:
+    xc = cfg.xlstm
+    D = cfg.d_model
+    hd = D // xc.n_heads
+    params = D * 4 * D + xc.n_heads * hd * 4 * hd + 4 * D + D + D * D \
+        + _norm_params(cfg)
+    # input projection + per-step recurrent matmul + output projection.
+    flops = 2 * T * D * 4 * D + 8 * T * D * hd + 2 * T * D * D
     return params, float(flops)
 
 
@@ -181,7 +252,8 @@ class LMLayerStack(LayerStack):
 
     @property
     def block_kinds(self) -> Tuple[str, ...]:
-        """The kind of each cut-point: embed, attn, mamba2 or head."""
+        """The kind of each cut-point: embed, attn, moe, mamba2, mlstm,
+        slstm or head."""
         return tuple(spec.kind for spec in self._plan)
 
     # ---- metadata ------------------------------------------------------
@@ -193,7 +265,7 @@ class LMLayerStack(LayerStack):
         hid_act = hid_elems * act_elem
         hid_grad = hid_elems * 4                       # f32 gradient wire
         metas: List[CutMeta] = []
-        counts = {"attn": 0, "mamba2": 0}
+        counts = {k: 0 for k in ("attn", "moe", "mamba2", "mlstm", "slstm")}
         for spec in self._plan:
             if spec.kind == "embed":
                 metas.append(CutMeta(
@@ -215,12 +287,17 @@ class LMLayerStack(LayerStack):
                     grad_elems=float(T * cfg.vocab),
                     param_bytes=float(p * act_elem)))
                 continue
-            if spec.kind == "attn":
+            if spec.kind in ("attn", "moe"):
                 pa, fa = _attn_meta(cfg, T)
-                pm, fm = _mlp_meta(cfg, T)
+                pm, fm = (_mlp_meta if spec.kind == "attn"
+                          else _moe_meta)(cfg, T)
                 p, flops = pa + pm + 2 * _norm_params(cfg), fa + fm
-            else:
+            elif spec.kind == "mamba2":
                 p, flops = _mamba2_meta(cfg, T)
+            elif spec.kind == "mlstm":
+                p, flops = _mlstm_meta(cfg, T)
+            else:
+                p, flops = _slstm_meta(cfg, T)
             counts[spec.kind] += 1
             metas.append(CutMeta(
                 name=f"{spec.kind}{counts[spec.kind]}", param_count=p,
@@ -254,12 +331,22 @@ class LMLayerStack(LayerStack):
                     "lm_head": truncated_normal_init(
                         generator, (cfg.d_model, cfg.vocab), 1.0, cfg.dtype,
                         dev)})
-            elif spec.kind == "attn":
+            elif spec.kind in ("attn", "moe"):
                 params.append(_init_block(generator, cfg, dev))
-            else:
+            elif spec.kind == "mamba2":
                 params.append({"pre": _init_norm(cfg, dev),
                                "m": ssm_mod.init_mamba2(
                                    generator, cfg.d_model, cfg.ssm,
+                                   cfg.dtype, dev)})
+            elif spec.kind == "mlstm":
+                params.append({"pre": _init_norm(cfg, dev),
+                               "m": xlstm_mod.init_mlstm(
+                                   generator, cfg.d_model, cfg.xlstm,
+                                   cfg.dtype, dev)})
+            else:
+                params.append({"pre": _init_norm(cfg, dev),
+                               "s": xlstm_mod.init_slstm(
+                                   generator, cfg.d_model, cfg.xlstm,
                                    cfg.dtype, dev)})
         return params
 
@@ -274,12 +361,19 @@ class LMLayerStack(LayerStack):
                 x = F.embedding(x.long(), p["embed"])
             elif spec.kind == "head":
                 x = _apply_norm(cfg, p["final_norm"], x) @ p["lm_head"]
-            elif spec.kind == "attn":
+            elif spec.kind in ("attn", "moe"):
                 x = _apply_block(cfg, p, x, spec.window)
-            else:
+            elif spec.kind == "mamba2":
                 hn = _apply_norm(cfg, p["pre"], x)
                 x = x + ssm_mod.apply_mamba2(p["m"], hn, cfg.ssm,
                                              use_kernel=cfg.use_gla_kernel)
+            elif spec.kind == "mlstm":
+                hn = _apply_norm(cfg, p["pre"], x)
+                x = x + xlstm_mod.apply_mlstm(p["m"], hn, cfg.xlstm,
+                                              use_kernel=cfg.use_gla_kernel)
+            else:
+                hn = _apply_norm(cfg, p["pre"], x)
+                x = x + xlstm_mod.apply_slstm(p["s"], hn, cfg.xlstm)
         return x
 
     def sum_loss(self, logits: torch.Tensor, labels: torch.Tensor
@@ -305,8 +399,8 @@ def lm_layerstack(cfg: LMConfig, seq_len: int,
                   backend: str = "ref") -> LMLayerStack:
     """Build the LayerStack adapter over ``cfg``'s block stack.
 
-    ``backend="cuda"`` routes attention blocks onto
-    ``kernels/csrc/flash_attention.cu`` and Mamba2 blocks onto
+    ``backend="cuda"`` routes attention and MoE blocks onto
+    ``kernels/csrc/flash_attention.cu`` and Mamba2 and mLSTM blocks onto
     ``kernels/csrc/gla_scan.cu``; ``"ref"`` (default) keeps the plain
     PyTorch path.  Profiles and schedules are backend-independent."""
     return LMLayerStack(cfg=cfg, seq_len=seq_len, backend=backend)

@@ -47,6 +47,8 @@ from repro_torch.models.lm.common import (Params, apply_geglu,
 from repro_torch.models.lm.moe import MoEConfig
 from repro_torch.models.lm.ssm import SSMConfig
 from repro_torch.models.lm.xlstm import XLSTMConfig
+from repro_torch.tree import leaves as _leaves
+from repro_torch.tree import tree_map as _map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -232,20 +234,8 @@ def _maybe_remat(cfg: LMConfig, fn: Callable) -> Callable:
 
 
 # ---------------------------------------------------------------------------
-# nested-dict trees
+# nested-dict trees (walks in repro_torch.tree)
 # ---------------------------------------------------------------------------
-
-def _map(fn: Callable, tree: Params) -> Params:
-    return {k: _map(fn, v) if isinstance(v, dict) else fn(v)
-            for k, v in tree.items()}
-
-
-def _leaves(tree: Params) -> List[torch.Tensor]:
-    out = []
-    for v in tree.values():
-        out += _leaves(v) if isinstance(v, dict) else [v]
-    return out
-
 
 def _index(tree: Params, i) -> Params:
     """Entry ``i`` of every stacked leaf (views, no copy)."""

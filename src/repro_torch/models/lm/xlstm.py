@@ -188,15 +188,17 @@ def _slstm_out(p: Params, hs: torch.Tensor, dtype: torch.dtype
 def _slstm_forward(p: Params, x: torch.Tensor, cfg: XLSTMConfig,
                    carry: Optional[Tuple] = None):
     """Strictly sequential over T.  Returns (y, final_carry)."""
-    B, T, D = x.shape
+    B, _, D = x.shape
     nh = cfg.n_heads
     gx = _slstm_gates(p, x, nh)
     if carry is None:
         zeros = x.new_zeros((B, nh, D // nh), dtype=torch.float32)
         carry = (zeros, zeros, zeros, zeros)
     hs = []
-    for t in range(T):
-        carry, h = _slstm_cell(carry, gx[:, t], p["r"])
+    # unbind, not gx[:, t]: under autograd each indexed step's backward
+    # writes a zero tensor of gx's full size, T of them a sequence
+    for gxt in gx.unbind(1):
+        carry, h = _slstm_cell(carry, gxt, p["r"])
         hs.append(h)
     return _slstm_out(p, torch.stack(hs, dim=1), x.dtype), carry
 

@@ -1,4 +1,8 @@
-"""The hierarchical training loop behind ``Plan.train``."""
-from repro_torch.train.loop import HierLoopConfig, InjectedFailure
+"""Training: the single-process train step, the generic loop around it,
+and the hierarchical loop behind ``Plan.train``."""
+from repro_torch.train.loop import (HierLoopConfig, InjectedFailure,
+                                    LoopConfig, run_train_loop)
+from repro_torch.train.step import TrainState, init_state, make_train_step
 
-__all__ = ["HierLoopConfig", "InjectedFailure"]
+__all__ = ["HierLoopConfig", "InjectedFailure", "LoopConfig",
+           "run_train_loop", "TrainState", "init_state", "make_train_step"]

@@ -1,11 +1,13 @@
-"""Fault-tolerant hierarchical training loop.
+"""Fault-tolerant training loops.
 
-The port of the hierarchical half of :mod:`repro.train.loop` (the engine
-behind :meth:`repro_torch.api.Plan.train`, on the triple, the star and
-the tree).
-Planning, the straggler EMA and the simulated wall clock are numpy and
-give the JAX package's schedules and walls ``==``; the numerics run the
-port's hybrid-SGD step in PyTorch on the plan's device.
+The port of :mod:`repro.train.loop`: ``run_train_loop`` / ``LoopConfig``,
+the generic loop around a single-process train step
+(:func:`repro_torch.train.step.make_train_step`), and the hierarchical
+loop behind :meth:`repro_torch.api.Plan.train` (on the triple, the star
+and the tree).  The hierarchical loop's planning, straggler EMA and
+simulated wall clock are numpy and give the JAX package's schedules and
+walls ``==``; the numerics run the port's hybrid-SGD step in PyTorch on
+the plan's device.
 
 Failure model and mitigations:
 
@@ -45,10 +47,69 @@ from repro_torch.core.hybrid_step import (hybrid_step_from_schedule,
                                           multi_hybrid_step_from_schedule,
                                           tree_schedule_step)
 from repro_torch.core.pipeline import t_period, t_period_multi
+from repro_torch.tree import leaves
 
 
 class InjectedFailure(RuntimeError):
     pass
+
+
+@dataclasses.dataclass
+class LoopConfig:
+    total_steps: int
+    ckpt_every: int = 50
+    ckpt_dir: Optional[str] = None
+    keep: int = 3
+    log_every: int = 10
+    fail_at: Optional[int] = None     # raise after completing this step
+    seed: int = 0
+
+
+def run_train_loop(cfg: LoopConfig, state: Any, train_step: Callable,
+                   batch_fn: Callable[[int], Dict[str, Any]],
+                   log: Optional[Callable[[str], None]] = print
+                   ) -> Dict[str, Any]:
+    """Run (or resume) ``train_step(state, batch, step)`` for steps
+    ``[start, total_steps)``, where ``start`` is the newest checkpoint's
+    step in ``cfg.ckpt_dir`` (0 without one).  ``batch_fn(step)`` gives
+    batch ``step`` as numpy arrays (a pure function of the step, so a
+    resumed run replays no data); it is moved to the device the state
+    lives on.  Returns ``{state, history, resumed_from}``: ``history``
+    holds the float metrics every ``log_every`` steps with ``steps_per_s``
+    and ``at``."""
+    manager = CheckpointManager(cfg.ckpt_dir, cfg.keep) if cfg.ckpt_dir \
+        else None
+    start = 0
+    resumed_from = None
+    if manager is not None:
+        step, restored = manager.restore_latest(state)
+        if restored is not None:
+            state, start, resumed_from = restored, step, step
+
+    dev = leaves(state)[0].device
+    history: List[Dict[str, float]] = []
+    t_last = time.perf_counter()
+    for step in range(start, cfg.total_steps):
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in batch_fn(step).items()}
+        state, metrics = train_step(state, batch, step)
+        if cfg.log_every and (step + 1) % cfg.log_every == 0:
+            m = {k: float(v) for k, v in metrics.items()}
+            now = time.perf_counter()
+            m["steps_per_s"] = cfg.log_every / (now - t_last)
+            t_last = now
+            m["at"] = step + 1
+            history.append(m)
+            if log:
+                log(f"step {step+1}: loss={m['loss']:.4f} "
+                    f"gnorm={m.get('grad_norm', float('nan')):.3f} "
+                    f"({m['steps_per_s']:.2f} it/s)")
+        if manager is not None and (step + 1) % cfg.ckpt_every == 0:
+            manager.save(step + 1, state, extra={"seed": cfg.seed})
+        if cfg.fail_at is not None and step + 1 == cfg.fail_at:
+            raise InjectedFailure(f"injected failure after step {step+1}")
+    return {"state": state, "history": history,
+            "resumed_from": resumed_from}
 
 
 @dataclasses.dataclass

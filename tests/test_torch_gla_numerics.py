@@ -421,9 +421,10 @@ def test_chip_smoke_bf16_gla_cases_reach_the_kernel_edges():
 
 def test_chip_smoke_gla_cases_reach_the_wide_kernel():
     """Wide heads (128 < dk <= 512): at xlstm-350m's prefill (bf16,
-    normalize, mLSTM draws, W=256), at fleet-xlstm's training shape (B=64
-    x 4 mLSTM heads of 256, T=512, W=128, benchmarks/fig_lm_fleet.py:
-    60-63) and ragged at dk = dv = 256 in both dtypes.  Every bf16 row
+    normalize, mLSTM draws, W=256) and train step (T=512), at
+    fleet-xlstm's training shape (B=64 x 4 mLSTM heads of 256, T=512,
+    W=128, benchmarks/fig_lm_fleet.py:60-63) and ragged at dk = dv = 256
+    in both dtypes.  Every bf16 row
     wider than 128 goes to gla_fwd_wide_bf16 (on mLSTM draws), f32 to the
     CUDA cores, and no narrower row to the wide kernel."""
     wide = [c for c in chip_smoke.GLA_CASES if c[3] > 128]
@@ -437,6 +438,7 @@ def test_chip_smoke_gla_cases_reach_the_wide_kernel():
     wide_bf16 = {c[0]: c for c in chip_smoke.GLA_CASES
                  if c[6] == "bf16" and max(c[3], c[4]) > 128}
     assert set(wide_bf16) == {"xlstm_350m_prefill_4x4_2048_512_W256",
+                              "xlstm_350m_train_4x4_512_512_W256",
                               "bf16_dk256_ragged_8_300_256_W128",
                               "fleet_xlstm_64x4_512_256_W128"}
     assert wide_bf16["fleet_xlstm_64x4_512_256_W128"][1:6] == \

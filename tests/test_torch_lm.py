@@ -1,4 +1,5 @@
-"""The port's LM layer stack (dense and zamba) against the JAX package's,
+"""The port's LM layer stack (dense and zamba) against the JAX package's
+(the moe and xlstm families: tests/test_torch_lm_families.py),
 on the same inputs.
 
 Params have the shapes of the JAX ``init`` and values drawn with numpy
@@ -114,10 +115,10 @@ def np_params(jstack, seed: int):
     return jax.tree_util.tree_map_with_path(draw, shapes)
 
 
-def tokens(stack, B: int, seed: int):
+def tokens(stack, B: int, seed: int, seq: int = SEQ):
     rng = np.random.default_rng(seed)
-    x = rng.integers(0, stack.cfg.vocab, (B, SEQ), dtype=np.int32)
-    y = rng.integers(0, stack.cfg.vocab, (B, SEQ), dtype=np.int32)
+    x = rng.integers(0, stack.cfg.vocab, (B, seq), dtype=np.int32)
+    y = rng.integers(0, stack.cfg.vocab, (B, seq), dtype=np.int32)
     return x, y
 
 
@@ -190,14 +191,6 @@ def test_cut_meta_equals_jax(name, backend):
 def test_zamba2_7b_cut_runs_both_kernels_once_per_group():
     kinds = lm_layerstack(tzamba.FULL.variant(**ZAMBA_CUT), 512).block_kinds
     assert kinds == ("embed",) + ("mamba2",) * 6 + ("attn", "head")
-
-
-@pytest.mark.parametrize("family", ["moe", "xlstm"])
-def test_later_families_name_the_roadmap(family):
-    cfg = LMConfig(name="t", family=family, n_layers=1, d_model=32,
-                   n_heads=2, n_kv_heads=2, d_ff=64, vocab=128)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lm_layerstack(cfg, 16)
 
 
 def test_backend_validation():
