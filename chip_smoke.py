@@ -102,10 +102,23 @@ Phases (every one that fails exits non-zero; there is no CPU path):
     mLSTM block a step, remat), the loss on the first batch falling; a
     run killed after step 3 and resumed from its step-2 checkpoint ends
     bitwise equal; one profiled step.
-13. One JSON line of kernels; last, the ``{"ok": true, ...}`` line.
+13. distrib/ on a one-rank NCCL group (a ``FileStore``, no TCP port;
+    destroyed after): qwen2.5-3b at its published widths, cut to 8 of 36
+    layers, bf16, B=4 x 512, AdamW, through ``make_train_step(hier_sync=
+    True)`` on a ``("pod",)`` mesh with ``tiers=None``, a mixed
+    ``choose_tiers`` assignment (the largest leaves int8) and all-int8
+    tiers, each from one seeded state: the first bitwise the flat step,
+    the others bitwise the flat gradients with each demoted leaf through
+    the plain quantizer under the same noise; the quantizer launched
+    once per demoted leaf (phase 3 holds their f32 rows with tensor
+    noise); step ms, peak memory.  Then the AlexNet E=2 tree of phase 8
+    through ``Plan.step_fn(cloud_mesh=...)`` on a ``("data",)`` mesh,
+    against the same step without it (bitwise, or else the reference
+    test's tolerances), its divisibility guard, and both steps' ms.
+14. One JSON line of kernels; last, the ``{"ok": true, ...}`` line.
 
 Each main path (4, 5 and 6 per plan, 7, 8 per plan, 9 per generate call,
-10 per plan, 11, 12)
+10 per plan, 11, 12, 13 per tier setting and the cloud_mesh step)
 zeroes every launch counter just before its steps and reads them just
 after, and fails unless each kernel of the path launched exactly as
 often as the schedule's executed segments (flash per attention or MoE
@@ -378,11 +391,12 @@ def quant_bound(M: int, N: int, x_bytes: int, u_tensor: bool,
                  H100_F32_FLOP_PER_S)
 
 
-def quant_cases(torch, dev, g, alexnet_rows) -> list:
+def quant_cases(torch, dev, g, alexnet_rows, sync_rows=()) -> list:
     """``(name, x, u)`` of the quantizer phase: the main paths' wire
     shapes (AlexNet f32 ``alexnet_rows`` x 50,176, as
     :func:`alexnet_wire_rows` derives them; fleet-gla bf16 35/38 x
-    262,144),
+    262,144), the tiered sync's ``[M, N]`` f32 rows with tensor noise
+    (``sync_rows``, as :func:`hier_sync_rows` derives them),
     a ragged f32 row, a 1x1, a zero row, a bf16 block, a NaN
     row with a row holding +-inf, a bf16 row length that is not a whole
     number of 16-byte vectors, and x at a storage offset, so its data
@@ -394,6 +408,10 @@ def quant_cases(torch, dev, g, alexnet_rows) -> list:
     for m in (35, 38):                            # fleet-gla's wire rows
         cases.append((f"lm_bf16_{m}x{LM_T * 512}", torch.randn(
             m, LM_T * 512, generator=g, device=dev).to(torch.bfloat16), 0.5))
+    for m, n in sync_rows:                        # phase 13's int8 tier
+        cases.append((f"sync_{m}x{n}_u", torch.randn(
+            m, n, generator=g, device=dev), torch.rand(
+            m, n, generator=g, device=dev)))
     zero = torch.randn(3, 1000, generator=g, device=dev)
     zero[1] = 0.0
     nan_inf = 3.0 * torch.randn(4, 3000, generator=g, device=dev)
@@ -454,7 +472,7 @@ def max_err(torch, got, want) -> float:
     return float((g[keep] - w[keep]).abs().max()) if keep.any() else 0.0
 
 
-def check_quantizer(torch, iq, ref, alexnet_rows) -> dict:
+def check_quantizer(torch, iq, ref, alexnet_rows, sync_rows=()) -> dict:
     """Both entries of the int8 kernel against their plain versions,
     bitwise: ``quantize_int8`` on every case, the wire's fused
     ``wire_qdq_int8`` on every case with u = 0.5, timed beside the
@@ -470,7 +488,7 @@ def check_quantizer(torch, iq, ref, alexnet_rows) -> dict:
         fail(f"the kernels' division differs from the IEEE one on {bad} "
              f"quotients")
     rows = {}
-    for name, x, u in quant_cases(torch, dev, g, alexnet_rows):
+    for name, x, u in quant_cases(torch, dev, g, alexnet_rows, sync_rows):
         M, N = x.shape
         utensor = isinstance(u, torch.Tensor)
         S = iq.plan_slices(M, N, x.element_size())[0]
@@ -2129,6 +2147,284 @@ def run_serve(torch, kernels, configs, lm_model, engine, arch) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: distrib/ on a one-rank NCCL group.
+# ---------------------------------------------------------------------------
+
+# qwen2.5-3b at its published widths, 8 of 36 layers (two train states
+# and the f32 copies of the demoted leaves fit the card), B x T tokens,
+# AdamW; HIER_STEPS steps of each tier setting (the first from the seeded
+# state and checked, the rest timed).  HIER_MIXED demotes the largest
+# leaves to the int8 tier (the greedy stops once the predicted sync fits
+# a quarter of HIER_MIXED's compute_seconds at 25 GB/s); HIER_INT8 forces
+# every leaf to it, as tests/test_distrib.py does.
+HIER_ARCH, HIER_REDUCED = "qwen2.5-3b", {"n_layers": 8}
+HIER_B, HIER_T, HIER_LR, HIER_STEPS = 4, 512, 1e-4, 4
+HIER_MIXED = dict(dcn_bytes_per_s=25e9, compute_seconds=0.25)
+HIER_INT8 = dict(dcn_bytes_per_s=1.0, compute_seconds=1e-12)
+HIER_PODS = 2                     # dcn_bytes_per_step is printed for 2
+# the cloud_mesh tree step against the same plan's step without it: the
+# reference test's tolerances (tests/test_distrib.py:226-229) where the
+# two are not bitwise equal
+CLOUD_LOSS_RTOL, CLOUD_RTOL, CLOUD_ATOL = 1e-6, 2e-5, 2e-6
+
+
+def hier_config(configs):
+    return configs.get_arch(HIER_ARCH).lm.variant(use_flash=True,
+                                                  **HIER_REDUCED)
+
+
+def hier_tiers(tiered, params) -> dict:
+    """The phase's tier assignments over ``params`` (``None`` is the
+    all-full-width step)."""
+    return {"none": None,
+            "mixed": tiered.choose_tiers(params, n_pods=HIER_PODS,
+                                         **HIER_MIXED),
+            "int8": tiered.choose_tiers(params, n_pods=HIER_PODS,
+                                        **HIER_INT8)}
+
+
+def hier_sync_rows(torch, lm_model, tiered, cfg) -> list:
+    """The ``_as_2d`` ``[M, N]`` of every leaf the phase's int8 tiers
+    demote (every leaf, under ``HIER_INT8``), from a seeded init on the
+    card that is freed after."""
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    params = lm_model.build_model(cfg).init(g, g.device)
+    rows = set()
+    for t in hier_tiers(tiered, params).values():
+        if t is not None:
+            flags = dict(leaves(t.quantized))
+            rows |= {tuple(tiered._as_2d(x)[0].shape)
+                     for k, x in leaves(params) if flags[k]}
+    del params
+    torch.cuda.empty_cache()
+    return sorted(rows)
+
+
+def hier_composition(torch, ref, tiered, step_mod, model, opt, state,
+                     batch, tiers, step: int):
+    """What a one-rank hier step must give: the flat step's gradients,
+    each demoted leaf replaced by the plain quantizer's dequantized round
+    trip under the same noise (one generator seeded by ``sync_seed(step,
+    0)``, drawn in leaf order), then the optimizer's update."""
+    from repro_torch import tree
+    loss, grads = step_mod._microbatched_grads(model.loss_fn,
+                                               state["params"], batch, 1)
+    gen = torch.Generator(device="cuda").manual_seed(
+        tiered.sync_seed(step, 0))
+    out = []
+    for g, q in zip(tree.leaves(grads), tree.leaves(tiers.quantized)):
+        if q:
+            g2, shape = tiered._as_2d(g.float())
+            u = torch.rand(g2.shape, generator=gen, dtype=torch.float32,
+                           device=g.device)
+            codes, scale = ref.ref_quantize_int8(g2.contiguous(), u)
+            del g2, u
+            g = (codes.float() * scale[:, None]).reshape(shape).to(g.dtype)
+            del codes, scale
+        out.append(g)
+    grads = tree.unflatten(grads, iter(out))
+    params, opt_state, gnorm = opt.update(state["params"], grads,
+                                          state["opt"])
+    return {"params": params, "opt": opt_state}, loss
+
+
+def same_state(torch, a, b) -> bool:
+    return all(torch.equal(u, v) and u.dtype == v.dtype for (_, u), (_, v)
+               in zip(leaves(a), leaves(b)))
+
+
+def run_hier(torch, kernels, ref, lm_model, optim, train, step_mod, tiered,
+             compat, make_batch_fn, shape, cfg, pod, held_rows) -> dict:
+    """``make_train_step(hier_sync=True)`` on the ``("pod",)`` mesh of one
+    rank for each tier setting, from one seeded state and batch: the
+    full-width step bitwise the flat step, the int8 ones bitwise
+    :func:`hier_composition`; the quantizer launched once per demoted
+    leaf and flash as the layer count implies; step ms (host clock and
+    ``synchronize``) and peak memory; one profiled step."""
+    model = lm_model.build_model(cfg)
+    opt = optim.AdamW(lr=HIER_LR)
+    state0 = train.init_state(model, opt,
+                              torch.Generator(device="cuda").manual_seed(
+                                  SEED), "cuda")
+    batch_fn = make_batch_fn(cfg, shape, seed=BATCH_SEED)
+    dev = next(leaves(state0["params"]))[1].device
+
+    def dev_batch(i):
+        return {k: torch.as_tensor(v, device=dev)
+                for k, v in batch_fn(i).items()}
+
+    n_params = sum(t.numel() for _, t in leaves(state0["params"]))
+    tiers = hier_tiers(tiered, state0["params"])
+    demoted = {name: [] if t is None else
+               [k for k, q in leaves(t.quantized) if q]
+               for name, t in tiers.items()}
+    rows = {tuple(tiered._as_2d(x)[0].shape)
+            for k, x in leaves(state0["params"])
+            if any(k in d for d in demoted.values())}
+    if not rows <= set(held_rows):
+        fail(f"{cfg.name} hier: the int8 tiers quantize rows "
+             f"{sorted(rows - set(held_rows))} phase 3 did not hold")
+    flash = flat_launches(cfg)["flash_attention"]
+    out = {"params": n_params, "tiers": {}}
+    print(f"  {cfg.name} hier: {n_params} parameters, "
+          f"{len(list(leaves(state0['params'])))} leaves")
+    b0 = dev_batch(0)
+    want, wmet = train.make_train_step(model, opt)(state0, b0, 0)
+    for name, t in tiers.items():
+        label = f"{cfg.name} hier tiers={name}"
+        info = {"demoted": demoted[name]}
+        if t is not None:
+            info["dcn_bytes_per_step"] = tiered.dcn_bytes_per_step(
+                t, HIER_PODS)
+            info["describe"] = t.describe()
+            print(f"  {label}: demoted {demoted[name]}; {t.describe()}; "
+                  f"dcn_bytes_per_step(n_pods={HIER_PODS}) "
+                  f"{info['dcn_bytes_per_step']!r}")
+        step = train.make_train_step(model, opt, hier_sync=True, tiers=t)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        zero_counters(kernels)
+        t0 = time.perf_counter()
+        with compat.set_mesh(pod):
+            got, met = step(state0, b0, 0)
+        torch.cuda.synchronize()
+        ms = [(time.perf_counter() - t0) * 1e3]
+        launches = read_counters(kernels)
+        peak = torch.cuda.max_memory_allocated()
+        one = {"int8_quant": len(demoted[name]), "flash_attention": flash,
+               "gla_scan": 0}
+        if t is None:
+            equal = same_state(torch, got, want) and \
+                torch.equal(met["loss"], wmet["loss"])
+            against = "the flat step"
+        else:
+            expect, eloss = hier_composition(torch, ref, tiered, step_mod,
+                                             model, opt, state0, b0, t, 0)
+            equal = same_state(torch, got, expect) and \
+                torch.equal(met["loss"], eloss)
+            against = "the flat gradients through the plain quantizer"
+            del expect
+        print(f"  {label}: loss {float(met['loss'])!r}, bitwise equal to "
+              f"{against}: {equal}; launches {launches} (expected {one}); "
+              f"peak {peak / 2 ** 30:.3f} GiB ({start / 2 ** 30:.3f} GiB "
+              f"before)")
+        if not equal:
+            fail(f"{label}: differs from {against}")
+        if launches != one:
+            fail(f"{label}: launches {launches}, expected {one}")
+        if t is None:
+            del want
+        state = got
+        del got
+        with compat.set_mesh(pod):
+            for i in range(1, HIER_STEPS):
+                b = dev_batch(i)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, met = step(state, b, i)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if not math.isfinite(float(met["loss"])):
+                    fail(f"{label}: non-finite loss at step {i}")
+            prof = profile_call(torch, lambda: step(state, b0, 0), label) \
+                if name == "mixed" else None
+        del state
+        torch.cuda.empty_cache()
+        print(f"  {label} step ms {ms}")
+        info.update(step_ms=ms, peak_bytes=peak, start_bytes=start,
+                    launches=launches, launches_per_step=one, equal=equal,
+                    loss=float(met["loss"]), profile=prof)
+        out["tiers"][name] = info
+    return out
+
+
+def run_cloud(torch, api, cnn, kernels, sharding, data) -> dict:
+    """``Plan.step_fn(cloud_mesh=...)`` on the AlexNet E=2 tree of phase 8
+    (B=64, int8 wire) over a one-rank ``("data",)`` mesh against the same
+    plan's step without it, from the same params and batch under cuDNN's
+    deterministic algorithms: bitwise equal, or else within the
+    reference test's tolerances; the same launches; the divisibility
+    guard; the ms of both steps."""
+    label = "tree E=2 cloud_mesh"
+    p = api.plan(cnn.alexnet(), tree_fleet(api, 2), B)
+    params = p.init_params(seed=SEED)
+    x, y = batch(torch)
+    steps = {"plain": p.step_fn(lr=LR),
+             "cloud_mesh": p.step_fn(lr=LR, cloud_mesh=data)}
+    res, launches = {}, {}
+    for k, fn in steps.items():
+        zero_counters(kernels)
+        res[k] = fn(params, x, y)
+        torch.cuda.synchronize()
+        launches[k] = read_counters(kernels)
+    (want, wl), (got, gl) = res["plain"], res["cloud_mesh"]
+    pairs = [(u, v) for q, r in zip(got, want)
+             for (_, u), (_, v) in zip(leaves(q), leaves(r))]
+    bitwise = torch.equal(gl, wl) and all(torch.equal(u, v)
+                                          for u, v in pairs)
+    loss_rel = abs(float(gl) - float(wl)) / abs(float(wl))
+    worst = max(float(((u - v).abs() - CLOUD_RTOL * v.abs()).max())
+                for u, v in pairs)
+    print(f"  {label}: {p.schedule}; loss {float(gl)!r} vs {float(wl)!r}; "
+          f"bitwise {bitwise}; loss rel {loss_rel!r}; params worst "
+          f"|d| - rtol |v| {worst!r}; launches {launches}")
+    if not bitwise and (loss_rel > CLOUD_LOSS_RTOL or worst > CLOUD_ATOL):
+        fail(f"{label}: differs from the step without cloud_mesh beyond "
+             f"the reference's tolerances")
+    if launches["plain"] != launches["cloud_mesh"]:
+        fail(f"{label}: launches {launches}")
+    try:
+        p.step_fn(lr=LR, cloud_mesh=sharding.MeshShape((3,), ("data",)))(
+            params, x, y)
+    except ValueError as e:
+        guard = str(e)
+    else:
+        fail(f"{label}: a 3-shard mesh over B={B} did not raise")
+    if "divisible" not in guard:
+        fail(f"{label}: the guard said {guard!r}")
+    print(f"  {label}: guard on a 3-shard mesh: {guard}")
+    ms = {k: [] for k in steps}
+    for _ in range(TIMED_STEPS):
+        for k, fn in steps.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(params, x, y)
+            torch.cuda.synchronize()
+            ms[k].append((time.perf_counter() - t0) * 1e3)
+    print(f"  {label} step ms {ms}")
+    return {"plan": str(p.schedule), "bitwise": bitwise,
+            "wire_rows": sorted(wire_rows(p.multi_schedule)),
+            "loss_rel": loss_rel, "params_worst": worst,
+            "launches": launches["cloud_mesh"],
+            "launches_per_step": launches["cloud_mesh"], "step_ms": ms,
+            "guard": guard}
+
+
+def run_distrib(torch, kernels, tmp: Path, **mods) -> dict:
+    """Phase 13 on a one-rank NCCL group (a ``FileStore`` under ``tmp``),
+    destroyed at the end."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp / "store"), 1), rank=0, world_size=1,
+        device_id=torch.device("cuda", 0))
+    try:
+        pod = init_device_mesh("cuda", (1,), mesh_dim_names=("pod",))
+        data = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        print(f"  process group: {dist.get_backend()} world "
+              f"{dist.get_world_size()}; meshes {pod} {data}")
+        with deterministic(torch):
+            hier = run_hier(torch, kernels, pod=pod, **mods["hier"])
+        with deterministic(torch, algorithms=False):
+            cloud = run_cloud(torch, kernels=kernels, data=data,
+                              **mods["cloud"])
+    finally:
+        dist.destroy_process_group()
+    return {"hier": hier, "cloud": cloud}
+
+
 def steady(ms):
     rest = sorted(ms[1:])
     return {"median": statistics.median(rest), "max": rest[-1],
@@ -2161,12 +2457,15 @@ def main() -> int:
     from repro_torch import train
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.data.pipeline import make_lm_batch_fn
+    from repro_torch.distrib import compat, sharding
+    from repro_torch.distrib import tiered_sync as tiered
     from repro_torch.models.lm import fleet_configs
     from repro_torch.models.lm import model as lm_model
     from repro_torch.models.lm.fleet_configs import FLEET_GLA
     from repro_torch.models.lm.layerstack import lm_layerstack
     from repro_torch.serve import engine
     from repro_torch.train import loop
+    from repro_torch.train import step as step_mod
     kernels = {"int8_quant": iq, "flash_attention": fa, "gla_scan": gs}
 
     # 1. card
@@ -2199,8 +2498,11 @@ def main() -> int:
     print(f"AlexNet wire rows, from phases 4, 5 and 8's plans and loop "
           f"replays: {alexnet_rows} "
           f"({(time.perf_counter() - t0) * 1e3:.0f} ms)")
+    hcfg = hier_config(configs)
+    sync_rows = hier_sync_rows(torch, lm_model, tiered, hcfg)
+    print(f"tiered-sync rows of phase 13's int8 tiers: {sync_rows}")
     print("int8_quant, both entries, vs plain versions (bitwise):")
-    qcases = check_quantizer(torch, iq, ref, alexnet_rows)
+    qcases = check_quantizer(torch, iq, ref, alexnet_rows, sync_rows)
     print("flash_attention vs plain version (TOL rule):")
     fcases = check_flash(torch, fa, ref)
     print("gla_scan vs plain version (TOL rule):")
@@ -2323,6 +2625,23 @@ def main() -> int:
     print(f"  xlstm-350m flat step ms {steady(flat['step_ms'])}")
     torch.cuda.empty_cache()
 
+    # 13. distrib/: the hier train step and the tree's cloud_mesh
+    print(f"main path: distrib/ on one NCCL rank: {HIER_ARCH} widths, "
+          f"reduced {HIER_REDUCED}, make_train_step(hier_sync=True), "
+          f"B={HIER_B}, T={HIER_T}, AdamW lr {HIER_LR}; then the AlexNet "
+          f"E=2 tree's Plan.step_fn(cloud_mesh=...)")
+    with tempfile.TemporaryDirectory() as tmp:
+        distrib = run_distrib(torch, kernels, Path(tmp), hier=dict(
+            ref=ref, lm_model=lm_model, optim=optim, train=train,
+            step_mod=step_mod, tiered=tiered, compat=compat,
+            make_batch_fn=make_lm_batch_fn,
+            shape=ShapeSpec("hier", HIER_T, HIER_B, "train"), cfg=hcfg,
+            held_rows=sync_rows), cloud=dict(api=api, cnn=cnn,
+                                              sharding=sharding))
+    for k, r in distrib["hier"]["tiers"].items():
+        print(f"  hier tiers={k} step ms {steady(r['step_ms'])}")
+    torch.cuda.empty_cache()
+
     path_runs = {"alexnet_M1": runs[1], "alexnet_M4": runs[4],
                  "alexnet_train_M1": train_runs[1],
                  "alexnet_train_M4": train_runs[4],
@@ -2333,7 +2652,10 @@ def main() -> int:
                  **{f"serve_{a}": r for a, r in serve_runs.items()},
                  "fleet_moe_M4": fam_runs["fleet-moe"],
                  "fleet_xlstm_M4": fam_runs["fleet-xlstm"],
-                 "qwen2_moe_2_layers": qm, "xlstm_350m_flat": flat}
+                 "qwen2_moe_2_layers": qm, "xlstm_350m_flat": flat,
+                 **{f"hier_{k}": r
+                    for k, r in distrib["hier"]["tiers"].items()},
+                 "alexnet_cloud_tree_E2": distrib["cloud"]}
     paths = {k: r["launches"] for k, r in path_runs.items()}
     held = set(alexnet_rows)
     seen = {k: r["wire_rows"] for k, r in path_runs.items()
@@ -2365,13 +2687,14 @@ def main() -> int:
         "measure_profile": measured,
         "zamba2_7b": z7, "serve": serve_runs, "fleet_families": fam_runs,
         "qwen2_moe_2_layers": qm, "xlstm_350m_flat": flat,
+        "distrib": distrib,
         "launches": paths,
         "tensor_cores": tensor_cores,
         "quantizer_cases": list(qcases.values()),
         "flash_cases": list(fcases.values()),
         "gla_cases": list(gcases.values())}, default=str))
 
-    # 13. kernels line
+    # 14. kernels line
     def entry(name, source, replaces, main, cases, ok_key):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,

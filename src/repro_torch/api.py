@@ -19,9 +19,9 @@ package; execution runs the hybrid-SGD step in PyTorch on the card::
 and raise when there is no card; pass ``device="cpu"`` to run on the
 CPU.  They run on the triple, the star and the tree; ``simulate``,
 ``baseline``, ``explain``, ``plan_many`` and the CLI are numpy and give
-the JAX package's numbers and strings ``==``.  Only ``step_fn``'s
-``cloud_mesh`` option (the cloud tail data-parallel across devices) is
-still to port (see ROADMAP.md).
+the JAX package's numbers and strings ``==``.  On a tree, ``step_fn``'s
+``cloud_mesh`` runs the cloud tail data-parallel over a
+``torch.distributed`` device mesh (one process per rank).
 
 CLI smoke: ``python -m repro_torch.api --explain lenet5 [--m 2]
 [--batch 64] [--topology tree --edges 2] [--wire int8]``.
@@ -174,9 +174,11 @@ class Plan:
         may be numpy arrays or tensors; they are moved to ``device``
         (default ``cuda``), where ``params`` must already live.
 
-        ``cloud_mesh`` is a tree-topology option (the cloud tail
-        data-parallel across devices); it is not ported yet and raises
-        ``NotImplementedError``."""
+        ``cloud_mesh`` (tree fleets only) runs the cloud tail segment
+        ``m_l..N`` data-parallel over the ``pod``/``data`` axes of a
+        ``DeviceMesh`` (:func:`repro_torch.core.hybrid_step.
+        tree_hybrid_sgd_step`); every rank calls the step with the same
+        params and batch and ends with the same params."""
         stack = self._require_model()
         if cloud_mesh is not None and self.fleet.topology != TREE:
             raise ValueError("cloud_mesh is a tree-topology option; this "

@@ -32,14 +32,17 @@ order.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import (Any, Callable, Dict, List, Optional,
                     Sequence, Tuple)
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.cost_model import MultiSchedule, Schedule
 from repro_torch.core.layerstack import as_layerstack
 from repro_torch.core.wire import wire_act_bytes, wire_codec, wire_grad_bytes
+from repro_torch.distrib.sharding import axis_names, axis_size, dp_axes
 from repro_torch.tree import grad, grad_leaves
 from repro_torch.tree import tree_map as _map
 
@@ -231,13 +234,6 @@ def multi_hybrid_step_from_schedule(model, params: Params, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _refuse_cloud_mesh(cloud_mesh) -> None:
-    if cloud_mesh is not None:
-        raise NotImplementedError(
-            "cloud_mesh is not ported to repro_torch yet (ROADMAP.md, "
-            "'Modules to port': item 7, the process-group cloud tail)")
-
-
 def tree_hybrid_sgd_step(model, params: Params, batches: Dict[str, object],
                          m_s: Sequence[int], m_l: int, lr: float,
                          wire: str = "none",
@@ -251,10 +247,14 @@ def tree_hybrid_sgd_step(model, params: Params, batches: Dict[str, object],
     edge* into one activation block before joining worker_o's
     ascending-cut walk.  The ``wire`` codec runs on each stream before
     its edge's merge, once per stream that carries samples.
-    ``cloud_mesh`` (the cloud tail data-parallel across devices) is not
-    ported yet and must be ``None``.
+
+    ``cloud_mesh`` (optional, a ``DeviceMesh`` with a ``pod`` and/or
+    ``data`` axis; every rank of it calls the step with the same params
+    and batch) runs the cloud-resident tail ``m_l..N`` data-parallel over
+    the mesh's dp axes, in two stages (:func:`_sharded_tail_grads`).  The
+    default ``None`` keeps the single backward whose results are
+    bit-identical to the star path at E=1.
     """
-    _refuse_cloud_mesh(cloud_mesh)
     stack = as_layerstack(model)
     N = stack.num_layers
     codec = wire_codec(wire)
@@ -271,6 +271,7 @@ def tree_hybrid_sgd_step(model, params: Params, batches: Dict[str, object],
     b_s = [sx.shape[0] for sx, _ in s_streams]
     b_o, b_l = x_o.shape[0], x_l.shape[0]
     B = b_o + sum(b_s) + b_l
+    dp = None if cloud_mesh is None else _cloud_dp(cloud_mesh, B)
     # Ascending-cut order with the hosting edge (then stream index)
     # breaking ties; maximal runs of equal (cut, edge) are one edge-side
     # merge each.  With every stream on edge 0 this is the star's order.
@@ -310,12 +311,16 @@ def tree_hybrid_sgd_step(model, params: Params, batches: Dict[str, object],
     cur = stack.apply_segment(p_o, cur, prev, m_l)
     if h_l is not None:
         cur = torch.cat([cur, h_l], dim=0)
-    logits = stack.apply_segment(p_o, cur, m_l, N)
     labels = torch.cat(
         [y_o] + [s_streams[i][1] for i in join_order] + [y_l], dim=0)
-    total_loss = stack.sum_loss(logits, labels)
-
-    grads = _grads(total_loss, [p_o, *p_s, p_l])
+    if dp is None:
+        logits = stack.apply_segment(p_o, cur, m_l, N)
+        total_loss = stack.sum_loss(logits, labels)
+        grads = _grads(total_loss, [p_o, *p_s, p_l])
+    else:
+        total_loss, grads = _sharded_tail_grads(
+            stack, cur, labels, [p_o, *p_s, p_l], m_l, N, B, cloud_mesh,
+            dp)
     g_o, g_s, g_l = grads[0], grads[1:1 + M], grads[1 + M]
 
     # --- weight-update phase: the star's order, g_o + g_s[d] + g_l ---
@@ -330,6 +335,68 @@ def tree_hybrid_sgd_step(model, params: Params, batches: Dict[str, object],
                 g = _add(g, g_l[i])
             new_params.append(_update(params, g, i, lr, B))
     return new_params, total_loss.detach() / B
+
+
+def _cloud_dp(mesh, B: int) -> Tuple[str, ...]:
+    """The cloud mesh's data-parallel axes; raises unless it has some and
+    they divide the global batch ``B``."""
+    dp = dp_axes(mesh)
+    if not dp:
+        raise ValueError("cloud_mesh has no data-parallel axes "
+                         f"('pod'/'data'); got axes {axis_names(mesh)}")
+    n_shards = math.prod(axis_size(mesh, a) for a in dp)
+    if B % n_shards != 0:
+        raise ValueError(
+            f"global batch {B} is not divisible by the cloud mesh's "
+            f"{n_shards} data-parallel shards; pick a schedule whose "
+            "batch split is a multiple of the dp size")
+    return dp
+
+
+def _sharded_tail_grads(stack, cur: torch.Tensor, labels: torch.Tensor,
+                        copies: List[Params], m_l: int, N: int, B: int,
+                        mesh, dp: Tuple[str, ...]
+                        ) -> Tuple[torch.Tensor, List[Params]]:
+    """Loss + grads with the cloud tail ``m_l..N`` data-parallel over the
+    mesh's ``dp`` axes.  Two stages: every rank runs the front (``cur``,
+    the whole batch at the boundary, under autograd); the tail runs on
+    this rank's contiguous shard of the detached boundary activation and
+    of the labels, its parameter grads and per-sample-sum loss are
+    SUM-all-reduced over ``dp``, and the shards' activation cotangents
+    are all-gathered back to the whole batch and fed through the front.
+    ``copies`` is ``[p_o, *p_s, p_l]``; ``p_o``'s grad is the front's
+    plus the tail's (each zero where the other's layers are), as the
+    reference's ``jax.tree.map(jnp.add, ...)``."""
+    sizes = [axis_size(mesh, a) for a in dp]
+    idx = 0
+    for a, n in zip(dp, sizes):
+        idx = idx * n + int(mesh.get_local_rank(a))
+    b = B // math.prod(sizes)
+    cur_l = cur.detach()[idx * b:(idx + 1) * b].requires_grad_(True)
+    p_o = copies[0]
+    loss_l = stack.sum_loss(stack.apply_segment(p_o, cur_l, m_l, N),
+                            labels[idx * b:(idx + 1) * b])
+    g_tail, g_cur = grad(loss_l, [p_o, cur_l])
+    groups = [mesh.get_group(a) for a in dp]
+
+    def dp_sum(t: torch.Tensor) -> torch.Tensor:
+        t = t.contiguous()            # NCCL takes dense tensors only
+        for g in groups:
+            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=g)
+        return t
+
+    with torch.no_grad():
+        g_tail = _map(dp_sum, g_tail)
+        total_loss = dp_sum(loss_l.detach().clone())
+        for g, n in zip(reversed(groups), reversed(sizes)):   # minor first
+            parts = [torch.empty_like(g_cur) for _ in range(n)]
+            dist.all_gather(parts, g_cur.contiguous(), group=g)
+            g_cur = torch.cat(parts, dim=0)
+    grads = grad(cur, copies, g_cur) if cur.requires_grad else \
+        _map(torch.zeros_like, copies)
+    with torch.no_grad():
+        grads[0] = _add(grads[0], g_tail)
+    return total_loss, grads
 
 
 def tree_stream_edges(profile, net, sched: MultiSchedule) -> Tuple[int, ...]:
@@ -370,15 +437,16 @@ def tree_schedule_step(profile, net, cloud_mesh=None) -> Callable:
     re-derived from each schedule it is given (:func:`tree_stream_edges`
     on ``profile`` and ``net``): the step ``Plan.step_fn`` and
     ``Plan.train`` run on a tree.  Same signature as the other
-    ``*_step_from_schedule`` functions, less ``stream_edge``."""
-    _refuse_cloud_mesh(cloud_mesh)
+    ``*_step_from_schedule`` functions, less ``stream_edge``;
+    ``cloud_mesh`` as in :func:`tree_hybrid_sgd_step`."""
 
     def run(model, params: Params, x: torch.Tensor, y: torch.Tensor,
             sched: MultiSchedule, lr: float, wire: str = "none"
             ) -> Tuple[Params, torch.Tensor]:
         return tree_hybrid_step_from_schedule(
             model, params, x, y, sched, lr, wire=wire,
-            stream_edge=tree_stream_edges(profile, net, sched))
+            stream_edge=tree_stream_edges(profile, net, sched),
+            cloud_mesh=cloud_mesh)
     return run
 
 

@@ -68,6 +68,23 @@ def int8_wire_bytes(elems):
     return np.asarray(elems, np.float64) * 1.0 + SCALE_BYTES
 
 
+def int8_leaf_bytes(shape) -> float:
+    """Compressed wire bytes of one whole tensor of ``shape``: one int8
+    byte per element plus one f32 absmax scale per quantized row, under
+    the codec's rowing rule (``ndim >= 2`` flattens to
+    ``prod(shape[:-1])`` rows of ``shape[-1]``; anything smaller is a
+    single row — :func:`repro_torch.distrib.tiered_sync._as_2d`).  Single
+    source for the predicted sync bytes
+    (:func:`~repro_torch.distrib.tiered_sync.choose_tiers` /
+    :func:`~repro_torch.distrib.tiered_sync.dcn_bytes_per_step`) and the
+    payload+scale bytes the int8 all-gather actually ships."""
+    shape = tuple(int(d) for d in shape)
+    elems = float(np.prod(shape, dtype=np.float64))
+    rows = float(np.prod(shape[:-1], dtype=np.float64)) \
+        if len(shape) >= 2 else 1.0
+    return elems * 1.0 + SCALE_BYTES * rows  # repro-lint: disable=RA301,RA302 int8 codec conversion point: exactly 1 byte per element
+
+
 def wire_act_bytes(meta, wire: str) -> float:
     """Forward wire bytes/sample at one cut under ``wire``."""
     validate_wire(wire)

@@ -179,7 +179,12 @@ def quantize_int8(x: torch.Tensor, generator: Optional[torch.Generator] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Quantizes the rows of ``x [M, N]`` with stochastic rounding, the
     uniform noise drawn from ``generator`` (on ``x``'s device).  Returns
-    ``(q int8 [M, N], scale f32 [M])``; :func:`dequantize_int8` inverts."""
+    ``(q int8 [M, N], scale f32 [M])``; :func:`dequantize_int8` inverts.
+    A tensor of any shape goes in by the rowing rule that
+    :func:`repro_torch.core.wire.int8_leaf_bytes` charges: ``ndim >= 2``
+    as ``prod(shape[:-1])`` rows of ``shape[-1]``, anything smaller as one
+    row (:func:`repro_torch.distrib.tiered_sync._as_2d`), so a call ships
+    ``M * N`` code bytes and ``4 * M`` scale bytes."""
     noise = torch.rand(x.shape, generator=generator, dtype=torch.float32,
                        device=x.device)
     return iq.quantize_int8(x, noise)

@@ -3,8 +3,9 @@
 The port of :mod:`repro.models.lm.common`.  Conventions are the JAX
 package's: params are nested dicts of tensors, activations are
 ``[B, T, D]``, the compute dtype is configurable (bf16 target) and
-softmax/normalization statistics are always f32.  The sharding hints of
-the JAX module are no-ops without a mesh and are dropped here.
+softmax/normalization statistics are always f32.  :func:`shard_hint` is
+the JAX module's sharding hint: the identity without a mesh in scope
+and on a plain (per-rank) tensor, a redistribution of a DTensor.
 """
 from __future__ import annotations
 
@@ -16,6 +17,53 @@ import torch
 import torch.nn.functional as F
 
 Params = Dict[str, Any]
+
+
+def ambient_abstract_mesh():
+    """The mesh in scope (:func:`repro_torch.distrib.compat.set_mesh`), or
+    ``None`` when there is none or it names no axes."""
+    from repro_torch.distrib import compat
+    mesh = compat.current_mesh()
+    if mesh is None or not getattr(mesh, "mesh_dim_names", None):
+        return None
+    return mesh
+
+
+def shard_hint(x: torch.Tensor, *axes) -> torch.Tensor:
+    """The reference's ``with_sharding_constraint`` hint.  ``axes``: one
+    entry per dim, each a mesh-axis name, a tuple of names, or None.
+
+    Without a mesh in scope it is the identity, and so it is on a plain
+    tensor: each rank holds its own shard, as inside the reference's
+    ``shard_map``.  A DTensor is redistributed over its mesh to the
+    placements the entries name, after dropping the axis names absent
+    from that mesh and any entry whose axes' product does not divide its
+    dim (single-pod vs multi-pod), as the reference drops them."""
+    if ambient_abstract_mesh() is None:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    from repro_torch.distrib.sharding import axis_names, axis_size, placements
+    mesh = x.device_mesh
+    present = axis_names(mesh)
+
+    def reduce(a, dim):
+        if a is None:
+            return None
+        names = tuple(n for n in (a if isinstance(a, tuple) else (a,))
+                      if n in present)
+        if not names:
+            return None
+        prod = 1
+        for n in names:
+            prod *= axis_size(mesh, n)
+        if dim % prod != 0 or dim < prod:
+            return None
+        return names if len(names) > 1 else names[0]
+
+    spec = tuple(reduce(a, x.shape[i]) for i, a in enumerate(axes))
+    return x.redistribute(mesh, placements(mesh, spec))
 
 
 def truncated_normal_init(generator: torch.Generator, shape: Tuple[int, ...],

@@ -7,7 +7,7 @@ these walks.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Iterator, List, Tuple
+from typing import Any, Callable, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -55,10 +55,13 @@ def grad_leaves(tree: Tree) -> Tree:
     return tree_map(lambda v: v.detach().requires_grad_(True), tree)
 
 
-def grad(loss: torch.Tensor, tree: Tree) -> Tree:
+def grad(loss: torch.Tensor, tree: Tree,
+         grad_output: Optional[torch.Tensor] = None) -> Tree:
     """d ``loss`` / d every leaf of ``tree`` (zeros where a leaf is
-    unused), in ``tree``'s nesting."""
+    unused), in ``tree``'s nesting; ``grad_output`` is the cotangent of a
+    non-scalar ``loss``."""
     xs = leaves(tree)
-    gs = torch.autograd.grad(loss, xs, allow_unused=True)
+    gs = torch.autograd.grad(loss, xs, grad_outputs=grad_output,
+                             allow_unused=True)
     return unflatten(tree, iter(torch.zeros_like(x) if g is None else g
                                 for x, g in zip(xs, gs)))

@@ -124,9 +124,22 @@ def test_microbatches_average_the_slices():
 
 
 def test_hier_sync_names_the_roadmap():
+    """``hier_sync=True`` runs only with a mesh whose ``pod`` axis is in
+    scope; without one (or with a mesh lacking the axis) the step raises a
+    ``ValueError`` that names it.  The multi-process step itself is held
+    to JAX's in tests/test_torch_distrib.py."""
+    from repro_torch.distrib import MeshShape, compat
     model = build_model(to_torch_config(JAX_LOOP_CFG))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_train_step(model, get_optimizer("adamw"), hier_sync=True)
+    opt = get_optimizer("adamw")
+    state = init_state(model, opt, torch.Generator().manual_seed(0), "cpu")
+    b = {k: torch.from_numpy(v) for k, v in SyntheticTokens(
+        JAX_LOOP_CFG.vocab, 16, 2, 0).batch(0).items()}
+    step = make_train_step(model, opt, hier_sync=True)
+    with pytest.raises(ValueError, match="'pod'"):
+        step(state, b, 0)
+    with compat.set_mesh(MeshShape((2, 2), ("data", "model"))), \
+            pytest.raises(ValueError, match="'pod'"):
+        step(state, b, 0)
 
 
 def test_init_state_runs_on_the_card_unless_asked():

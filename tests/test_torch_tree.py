@@ -20,8 +20,9 @@ JAX package's.
   and resume bitwise, resume from a checkpoint ``repro`` wrote (which
   must rebuild a ``TreeProfile``), ``replay`` ``==`` the loop, and churn
   refused with the reference's message.
-* ``cloud_mesh`` raises: ``NotImplementedError`` naming ROADMAP on a
-  tree, ``ValueError`` on a star.
+* ``cloud_mesh``'s guards: ``ValueError`` on a star, on a mesh with no
+  data-parallel axis and on one whose dp size does not divide the batch
+  (the sharded tail itself: tests/test_torch_distrib.py).
 """
 from __future__ import annotations
 
@@ -264,19 +265,28 @@ def test_tree_stream_edges_equal_jax():
 
 
 def test_cloud_mesh_raises():
+    """``cloud_mesh`` is a tree option (a star plan raises), and a mesh
+    with no data-parallel axis or whose dp size does not divide the batch
+    raises before any collective.  The sharded tail itself is held to the
+    single-rank step on gloo in tests/test_torch_distrib.py."""
+    from repro_torch.distrib import MeshShape
     _, tm = model_pair("lenet5")
     tree = tapi.plan(tm, tapi.Fleet.from_table2("lenet5", m=2, n_edges=2),
                      16)
     star = tapi.plan(tm, tapi.Fleet.from_table2("lenet5", m=2), 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tree.step_fn(cloud_mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="tree"):
         star.step_fn(cloud_mesh=object(), device="cpu")
+    params = tree.init_params(device="cpu")
     x, y = (torch.from_numpy(a) for a in batch(tm, 16, 1))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    no_dp = MeshShape((2,), ("model",))
+    with pytest.raises(ValueError, match="data-parallel axes"):
+        tree.step_fn(cloud_mesh=no_dp, device="cpu")(params, x, y)
+    with pytest.raises(ValueError, match="data-parallel axes"):
         ths.tree_hybrid_step_from_schedule(
-            tm, tree.init_params(device="cpu"), x, y, tree.schedule, 0.05,
-            cloud_mesh=object())
+            tm, params, x, y, tree.schedule, 0.05, cloud_mesh=no_dp)
+    with pytest.raises(ValueError, match="divisible"):
+        tree.step_fn(cloud_mesh=MeshShape((3, 1), ("data", "model")),
+                     device="cpu")(params, x, y)
 
 
 def test_tree_step_fn_runs_the_tree_engine():
