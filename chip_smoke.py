@@ -115,10 +115,29 @@ Phases (every one that fails exits non-zero; there is no CPU path):
     through ``Plan.step_fn(cloud_mesh=...)`` on a ``("data",)`` mesh,
     against the same step without it (bitwise, or else the reference
     test's tolerances), its divisibility guard, and both steps' ms.
-14. One JSON line of kernels; last, the ``{"ok": true, ...}`` line.
+14. launch/, after phase 13's group is destroyed: (a) the dry run
+    (``python -m repro_torch.launch.dryrun``, one CPU process per
+    ``DRYRUN_CELLS`` entry, all started together: the meta device and the
+    fake backend, no card) on the production meshes: qwen2.5-3b
+    ``train_4k`` on both meshes and with ``--hier`` on the multi-pod one,
+    grok-1-314b ``decode_32k``, zamba2-7b ``long_500k`` and
+    qwen2-moe-a2.7b ``train_4k``; every record ``OK`` with finite,
+    positive roofline terms, one line a cell.  (b) Phase 13's flat step
+    (qwen2.5-3b widths, 8 layers, bf16, B=4 x 512, AdamW) traced on meta
+    by ``dryrun.measure``, then run once on the card under the same
+    counter from the seeded state, then timed: the traced peak against
+    ``max_memory_allocated`` (within ``DRYRUN_PEAK``), the card's counted
+    FLOPs against the traced count (``DRYRUN_FLOPS``: flash's forward is
+    opaque on the card), the roofline terms and bound beside the median
+    step, and ``model_flops / (ms x 989e12)``; the meta trace counts no
+    launch.  (c) ``crosscheck_flops`` on the card for block 1 of
+    fleet-gla, fleet-moe and fleet-xlstm at T=512, each within the
+    reference's band.
+15. One JSON line of kernels; last, the ``{"ok": true, ...}`` line.
 
 Each main path (4, 5 and 6 per plan, 7, 8 per plan, 9 per generate call,
-10 per plan, 11, 12, 13 per tier setting and the cloud_mesh step)
+10 per plan, 11, 12, 13 per tier setting and the cloud_mesh step, 14's
+counted flat step)
 zeroes every launch counter just before its steps and reads them just
 after, and fails unless each kernel of the path launched exactly as
 often as the schedule's executed segments (flash per attention or MoE
@@ -136,6 +155,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -2425,6 +2445,217 @@ def run_distrib(torch, kernels, tmp: Path, **mods) -> dict:
     return {"hier": hier, "cloud": cloud}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: launch/ — the meta-device dry run, against the card.
+# ---------------------------------------------------------------------------
+
+# (a) the dry run's cells, one process each (all started together, while
+# (b) and (c) run): the CLI's arguments.
+DRYRUN_CELLS = (
+    ("--arch", "qwen2.5-3b", "--shape", "train_4k", "--mesh", "single"),
+    ("--arch", "qwen2.5-3b", "--shape", "train_4k", "--mesh", "multi"),
+    ("--arch", "qwen2.5-3b", "--shape", "train_4k", "--mesh", "multi",
+     "--hier"),
+    ("--arch", "grok-1-314b", "--shape", "decode_32k", "--mesh", "both"),
+    ("--arch", "zamba2-7b", "--shape", "long_500k", "--mesh", "both"),
+    ("--arch", "qwen2-moe-a2.7b", "--shape", "train_4k", "--mesh", "single"),
+)
+DRYRUN_TIMEOUT = 300
+# (b) phase 13's flat step: the traced peak against the card's within
+# DRYRUN_PEAK, the card's counted FLOPs DRYRUN_FLOPS of the traced count
+# (flash's forward, opaque on the card, is counted on meta: 1 % of this
+# step); DRYRUN_STEPS timed steps.
+DRYRUN_PEAK, DRYRUN_FLOPS, DRYRUN_STEPS = (0.5, 2.0), (0.9, 1.0), 5
+# (c) the FLOP cross-check's bands (tests/test_lm_layerstack.py:195-201),
+# one block of each fleet stack of benchmarks/fig_lm_fleet.py:51-63 at
+# T=LM_T, per sample of CROSS_B.
+CROSS_BANDS = {"mamba2": (0.9, 1.1), "moe": (0.6, 1.4), "mlstm": (0.9, 1.1)}
+CROSS_B = 2
+
+
+def start_dryruns(root: Path, out: Path) -> list:
+    """Starts one ``python -m repro_torch.launch.dryrun`` per
+    ``DRYRUN_CELLS`` entry (CPU only: the meta device and the fake
+    backend), each writing its records under ``out``."""
+    env = dict(os.environ, PYTHONPATH=str(root / "src"),
+               OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for i, args in enumerate(DRYRUN_CELLS):
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+               "--out", str(out / f"cells{i}.json")]
+        procs.append((args, subprocess.Popen(
+            cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    return procs
+
+
+def finish_dryruns(procs, out: Path) -> list:
+    """Waits for :func:`start_dryruns`' processes; every record must be
+    ``OK`` with finite, positive compute and memory terms (and a positive
+    collective term where the step syncs over the pod axis)."""
+    records = []
+    for i, (args, p) in enumerate(procs):
+        log = p.communicate(timeout=DRYRUN_TIMEOUT)[0]
+        if p.returncode != 0:
+            print(log)
+            fail(f"dry run {' '.join(args)} exited {p.returncode}")
+        with open(out / f"cells{i}.json") as f:
+            records += json.load(f)
+    for r in records:
+        tag = f"{r['arch']} x {r['shape']} x " \
+              f"{'x'.join(map(str, r.get('mesh', {}).values()))}" \
+              f"{' [hier]' if r.get('hier') else ''}"
+        if r["status"] != "OK":
+            fail(f"dry run {tag}: {r['status']} {r.get('error')}")
+        roof, mem = r["roofline"], r["memory"]
+        terms = ("compute_s", "memory_s") + \
+            (("collective_s",) if r["hier"] else ())
+        if not all(math.isfinite(roof[k]) and roof[k] > 0 for k in terms):
+            fail(f"dry run {tag}: roofline {roof}")
+        print(f"  dry run {tag}: trace {r['trace_s']} s, peak "
+              f"{mem['peak_gb']:.2f} GB a rank (fits 80 GB: "
+              f"{mem['fits_80gb']}), sharded state "
+              f"{mem['sharded_state_gb']:.2f} GB a device; compute / "
+              f"memory / collective {roof['compute_s']} / "
+              f"{roof['memory_s']} / {roof['collective_s']} s, "
+              f"{roof['dominant']}; useful {roof['useful_ratio']}; "
+              f"collectives {r['collectives']['counts']}"
+              + (f"; tiers {r['tiers']}" if r.get("tiers") else ""))
+    return records
+
+
+def dryrun_vs_card(torch, kernels, lm_model, optim, train, dryrun,
+                   make_batch_fn, shape, cfg) -> dict:
+    """Phase 13's flat step (``make_train_step``, AdamW, B x T tokens)
+    traced on meta by ``dryrun.measure``, then run once on the card under
+    the same counter from the seeded state, then timed: the peaks, the
+    FLOPs, the roofline terms beside the measured median step."""
+    label = f"{cfg.name} flat step"
+    model = lm_model.build_model(cfg)
+    opt = optim.AdamW(lr=HIER_LR)
+    meta_params = model.init(torch.Generator(), "meta")
+    model_flops = dryrun._model_flops(cfg, shape, dryrun._active_params(
+        cfg, meta_params))
+    meta_batch = {k: torch.empty((shape.global_batch, shape.seq_len),
+                                 dtype=torch.int32, device="meta")
+                  for k in ("tokens", "targets")}
+    step = train.make_train_step(model, opt)
+    zero_counters(kernels)
+    traced = dryrun.measure(dryrun.Program(step, (
+        {"params": meta_params, "opt": opt.init(meta_params)}, meta_batch,
+        0)), model_flops=model_flops)
+    if any(read_counters(kernels).values()):
+        fail(f"{label}: the meta trace counted launches "
+             f"{read_counters(kernels)}")
+    state0 = train.init_state(model, opt, torch.Generator(
+        device="cuda").manual_seed(SEED), "cuda")
+    dev = next(leaves(state0["params"]))[1].device
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in
+             make_batch_fn(cfg, shape, seed=BATCH_SEED)(0).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(kernels)
+    card = dryrun.measure(dryrun.Program(step, (state0, batch, 0)),
+                          model_flops=model_flops)
+    torch.cuda.synchronize()
+    launches = read_counters(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    expect = {"int8_quant": 0, "gla_scan": 0,
+              "flash_attention": flat_launches(cfg)["flash_attention"]}
+    if launches != expect:
+        fail(f"{label}: launches {launches}, expected {expect}")
+    ms = []
+    for _ in range(DRYRUN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(state0, batch, 0)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        del out
+    del state0
+    torch.cuda.empty_cache()
+    med = statistics.median(ms[1:])
+    roof = traced["roofline"]
+    flops = (traced["xla_cost"]["flops_per_dev"],
+             card["xla_cost"]["flops_per_dev"])
+    peaks = (traced["memory"]["peak_gb"] * 1e9 / 2 ** 30, peak / 2 ** 30)
+    bound_ms = max(roof["compute_s"], roof["memory_s"]) * 1e3
+    mfu = model_flops / (med / 1e3 * H100_BF16_FLOP_PER_S)
+    print(f"  {label}: peak GiB traced on meta {peaks[0]:.3f}, card "
+          f"max_memory_allocated {peaks[1]:.3f} (the counter's own on the "
+          f"card {card['memory']['peak_gb'] * 1e9 / 2 ** 30:.3f}); FLOPs "
+          f"traced {flops[0]:.6e}, counted on the card {flops[1]:.6e} "
+          f"({flops[1] / flops[0]:.4f}; {launches['flash_attention']} flash "
+          f"launches the card's count cannot see); bytes traced "
+          f"{traced['xla_cost']['bytes_per_dev']:.6e}, on the card "
+          f"{card['xla_cost']['bytes_per_dev']:.6e}")
+    print(f"  {label}: compute_s {roof['compute_s']} memory_s "
+          f"{roof['memory_s']} ({roof['dominant']}), bound {bound_ms:.3f} ms, "
+          f"against the measured median step {med:.3f} ms (steps {ms}); "
+          f"model_flops {model_flops:.6e}, model_flops / (ms x 989e12) = "
+          f"{mfu:.4f}; trace {traced['trace_s']} s, counted card step "
+          f"{card['trace_s']} s")
+    if not DRYRUN_PEAK[0] <= peaks[0] / peaks[1] <= DRYRUN_PEAK[1]:
+        fail(f"{label}: traced peak / card peak {peaks[0] / peaks[1]}")
+    if not DRYRUN_FLOPS[0] <= flops[1] / flops[0] <= DRYRUN_FLOPS[1]:
+        fail(f"{label}: card FLOPs / traced {flops[1] / flops[0]}")
+    return {"traced": traced, "card": card, "card_peak_bytes": peak,
+            "step_ms": ms, "median_ms": med, "bound_ms": bound_ms,
+            "model_flops": model_flops, "mfu": mfu, "launches": launches,
+            "launches_per_step": expect}
+
+
+def crosscheck_fleets(torch, lm_layerstack, crosscheck_flops,
+                      fleet_configs, device: str = "cuda") -> dict:
+    """``crosscheck_flops`` on the card for cut 1 of each fleet stack
+    (``"ref"`` backend), held to the reference's band."""
+    out = {}
+    for cfg in (fleet_configs.FLEET_GLA, fleet_configs.FLEET_MOE,
+                fleet_configs.FLEET_XLSTM):
+        stack = lm_layerstack(cfg, LM_T)
+        kind = stack.block_kinds[1]
+        analytic, counted = crosscheck_flops(stack, 1, CROSS_B, device)
+        lo, hi = CROSS_BANDS[kind]
+        ratio = analytic / counted
+        print(f"  crosscheck {cfg.name} block 1 ({kind}): analytic "
+              f"{analytic:.6e}, counted on the card {counted:.6e} a sample, "
+              f"ratio {ratio:.4f} (band {lo}-{hi})")
+        if not lo <= ratio <= hi:
+            fail(f"crosscheck {cfg.name}: ratio {ratio} outside {lo}-{hi}")
+        out[cfg.name] = {"kind": kind, "analytic": analytic,
+                         "counted": counted, "ratio": ratio}
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_launch(torch, kernels, root: Path, cfg, shape) -> dict:
+    """Phase 14: (a)'s processes started first, (b) and (c) on the card
+    while they run, then (a)'s records; the phase's seconds."""
+    from repro_torch import optim, train
+    from repro_torch.data.pipeline import make_lm_batch_fn
+    from repro_torch.launch import dryrun
+    from repro_torch.models.lm import fleet_configs
+    from repro_torch.models.lm import model as lm_model
+    from repro_torch.models.lm.layerstack import (crosscheck_flops,
+                                                  lm_layerstack)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = start_dryruns(root, Path(tmp))
+        try:
+            vs_card = dryrun_vs_card(torch, kernels, lm_model, optim, train,
+                                     dryrun, make_lm_batch_fn, shape, cfg)
+            cross = crosscheck_fleets(torch, lm_layerstack, crosscheck_flops,
+                                      fleet_configs)
+            cells = finish_dryruns(procs, Path(tmp))
+        finally:
+            for _, p in procs:
+                p.kill()
+    out = {"cells": cells, "vs_card": vs_card, "crosscheck": cross,
+           "phase_s": time.perf_counter() - t0}
+    print(f"  launch/ phase: {out['phase_s']:.1f} s")
+    return out
+
+
 def steady(ms):
     rest = sorted(ms[1:])
     return {"median": statistics.median(rest), "max": rest[-1],
@@ -2642,6 +2873,15 @@ def main() -> int:
         print(f"  hier tiers={k} step ms {steady(r['step_ms'])}")
     torch.cuda.empty_cache()
 
+    # 14. launch/: the dry run's cells (CPU processes), the dry run of
+    # phase 13's flat step against the card, the FLOP cross-check
+    print(f"main path: launch/ dry runs ({len(DRYRUN_CELLS)} processes: "
+          f"meta device, fake backend); {HIER_ARCH} {HIER_REDUCED} flat "
+          f"step traced on meta and run on the card; crosscheck_flops")
+    launch = run_launch(torch, kernels, root, hcfg,
+                        ShapeSpec("hier", HIER_T, HIER_B, "train"))
+    vs_card = launch["vs_card"]
+
     path_runs = {"alexnet_M1": runs[1], "alexnet_M4": runs[4],
                  "alexnet_train_M1": train_runs[1],
                  "alexnet_train_M4": train_runs[4],
@@ -2655,7 +2895,8 @@ def main() -> int:
                  "qwen2_moe_2_layers": qm, "xlstm_350m_flat": flat,
                  **{f"hier_{k}": r
                     for k, r in distrib["hier"]["tiers"].items()},
-                 "alexnet_cloud_tree_E2": distrib["cloud"]}
+                 "alexnet_cloud_tree_E2": distrib["cloud"],
+                 "dryrun_flat_step": vs_card}
     paths = {k: r["launches"] for k, r in path_runs.items()}
     held = set(alexnet_rows)
     seen = {k: r["wire_rows"] for k, r in path_runs.items()
@@ -2687,14 +2928,14 @@ def main() -> int:
         "measure_profile": measured,
         "zamba2_7b": z7, "serve": serve_runs, "fleet_families": fam_runs,
         "qwen2_moe_2_layers": qm, "xlstm_350m_flat": flat,
-        "distrib": distrib,
+        "distrib": distrib, "launch": launch,
         "launches": paths,
         "tensor_cores": tensor_cores,
         "quantizer_cases": list(qcases.values()),
         "flash_cases": list(fcases.values()),
         "gla_cases": list(gcases.values())}, default=str))
 
-    # 14. kernels line
+    # 15. kernels line
     def entry(name, source, replaces, main, cases, ok_key):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,

@@ -158,7 +158,8 @@ def tiered_grad_sync(grads: Tree, tiers: Optional[TierAssignment],
     its own gradients).  ``tiers=None`` => plain mean (the
     paper-faithful all-sync baseline).  Each int8-tier leaf draws its
     noise, in tree order, from one generator on the leaves' device
-    seeded with ``seed``."""
+    seeded with ``seed`` (on the ``meta`` device, which has no generator,
+    the noise is a shape: nothing is drawn)."""
     group, n = _group(compat.current_mesh(), axis)
     if tiers is None:
         return tree_map(lambda g: group_mean(g, group, n), grads)
@@ -171,7 +172,7 @@ def tiered_grad_sync(grads: Tree, tiers: Optional[TierAssignment],
     out = []
     for leaf, q in zip(flat, qflags):
         if q:
-            if gen is None:
+            if gen is None and leaf.device.type != "meta":
                 gen = torch.Generator(device=leaf.device).manual_seed(seed)
             out.append(_compressed_mean(leaf, gen, group, n))
         else:

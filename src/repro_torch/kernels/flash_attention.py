@@ -69,11 +69,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention_fwd needs contiguous q, k, v")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must be on one device")
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):       # meta: shapes only
         return ref_flash_attention(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_fwd runs on cpu or cuda, not "
-                         f"{q.device.type}")
+        raise ValueError(f"flash_attention_fwd runs on cpu, meta or cuda, "
+                         f"not {q.device.type}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"the CUDA kernel takes head widths {HEAD_DIMS}, "
                          f"got {hd}")

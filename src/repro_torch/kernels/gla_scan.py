@@ -75,10 +75,10 @@ def gla_scan_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("q, k, v and log_decay must be on one device")
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
-    if q.device.type == "cpu":
+    if q.device.type in ("cpu", "meta"):       # meta: shapes only
         return ref_gla(q, k, v, log_decay, normalize=normalize)
     if q.device.type != "cuda":
-        raise ValueError(f"gla_scan_fwd runs on cpu or cuda, not "
+        raise ValueError(f"gla_scan_fwd runs on cpu, meta or cuda, not "
                          f"{q.device.type}")
     BH, T, dk = q.shape
     dv = v.shape[-1]

@@ -83,7 +83,8 @@ def bind(lib: ctypes.CDLL):
     return quant, wire, check
 
 
-def _check_x(x: torch.Tensor, name: str) -> None:
+def _check_x(x: torch.Tensor, name: str,
+             devices: Tuple[str, ...] = ("cpu", "cuda")) -> None:
     if x.dim() != 2 or x.shape[0] == 0 or x.shape[1] == 0:
         raise ValueError(f"{name} needs a non-empty [M, N] tensor, got "
                          f"shape {tuple(x.shape)}")
@@ -91,8 +92,9 @@ def _check_x(x: torch.Tensor, name: str) -> None:
         raise TypeError(f"{name} takes f32 or bf16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError(f"{name} needs a contiguous x")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name} runs on cpu or cuda, not {x.device.type}")
+    if x.device.type not in devices:
+        raise ValueError(f"{name} runs on {', '.join(devices)}, not "
+                         f"{x.device.type}")
 
 
 def _plan(x: torch.Tensor) -> Tuple[int, int, torch.Tensor, int]:
@@ -116,14 +118,14 @@ def quantize_int8(x: torch.Tensor, noise: Union[torch.Tensor, float]
     """``x [M, N]`` f32 or bf16, contiguous; ``noise`` an f32 ``[M, N]``
     tensor on ``x``'s device, or a constant in [0, 1).  Returns
     ``(q int8 [M, N], scale f32 [M])``."""
-    _check_x(x, "quantize_int8")
+    _check_x(x, "quantize_int8", ("cpu", "meta", "cuda"))
     u_tensor = isinstance(noise, torch.Tensor)
     if u_tensor and (noise.shape != x.shape or noise.dtype != torch.float32
                      or noise.device != x.device
                      or not noise.is_contiguous()):
         raise ValueError("noise must be a contiguous f32 tensor of x's "
                          "shape on x's device")
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):       # meta: shapes only
         return ref_quantize_int8(x, noise)
     M, N = x.shape
     S, slice_elems, partial, stream = _plan(x)

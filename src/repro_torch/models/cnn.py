@@ -92,8 +92,11 @@ class LayeredModel:
                 wshape = (fan_in, spec.out)
                 nout = spec.out
                 shape = (spec.out,)
-            w = torch.randn(wshape, generator=generator, device=gdev,
-                            dtype=torch.float32) * math.sqrt(2.0 / fan_in)
+            if device.type == "meta":         # shapes only: draw nothing
+                w = torch.empty(wshape, dtype=torch.float32, device=device)
+            else:
+                w = torch.randn(wshape, generator=generator, device=gdev,
+                                dtype=torch.float32) * math.sqrt(2.0 / fan_in)
             params.append({"w": w.to(device),
                            "b": torch.zeros(nout, dtype=torch.float32,
                                             device=device)})

@@ -71,7 +71,11 @@ def truncated_normal_init(generator: torch.Generator, shape: Tuple[int, ...],
                           device=None) -> torch.Tensor:
     """A standard normal truncated to [-2, 2], times ``scale /
     sqrt(fan_in)`` (``fan_in = shape[0]`` for matrices), drawn in f32 on
-    the generator's device and cast to ``dtype`` on ``device``."""
+    the generator's device and cast to ``dtype`` on ``device``.  On the
+    ``meta`` device nothing is drawn: the result is an empty tensor of the
+    shape and dtype (the dry run's ``eval_shape``)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     fan_in = shape[0] if len(shape) >= 2 else 1
     t = torch.empty(shape, dtype=torch.float32, device=generator.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)

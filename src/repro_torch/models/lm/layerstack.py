@@ -42,8 +42,11 @@ otherwise.
 flash-attention kernel and Mamba2 and mLSTM blocks onto the CUDA GLA
 scan (through :mod:`repro_torch.kernels.ops`; for tensors on the CPU the
 kernels' plain versions run).  ``"ref"`` keeps the plain PyTorch path.
-The meta is backend-independent.  The HLO cross-checks of the JAX
-module have no counterpart here.
+The meta is backend-independent.  :func:`block_flops` /
+:func:`crosscheck_flops` are the JAX module's HLO cross-checks
+(``hlo_block_flops`` / ``hlo_crosscheck_flops``): one cut-point's
+forward counted under ``FlopCounterMode`` in place of the compiled
+HLO's dot count.
 """
 from __future__ import annotations
 
@@ -404,3 +407,45 @@ def lm_layerstack(cfg: LMConfig, seq_len: int,
     ``kernels/csrc/gla_scan.cu``; ``"ref"`` (default) keeps the plain
     PyTorch path.  Profiles and schedules are backend-independent."""
     return LMLayerStack(cfg=cfg, seq_len=seq_len, backend=backend)
+
+
+# ---------------------------------------------------------------------------
+# FLOP cross-check: run one cut-point's forward segment and count its
+# FLOPs with FlopCounterMode (the JAX module counts the compiled HLO's
+# dots) — the guard that keeps the analytic meta honest as block
+# implementations evolve.
+# ---------------------------------------------------------------------------
+
+
+def block_flops(stack: LMLayerStack, cut: int, batch: int = 1,
+                device=None) -> float:
+    """Counted per-sample FLOPs of cut-point ``cut``'s forward, on
+    ``device`` (default ``cuda``; ``meta`` counts shapes alone).  Params
+    and the segment's input come from seeded draws (seeds 0 and 1, as the
+    JAX module's keys); a CUDA kernel on the segment's path is one opaque
+    op to the counter, so cross-check a ``"ref"`` stack."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.device import resolve_device
+    dev = resolve_device(device)
+    gdev = "cpu" if dev.type == "meta" else dev
+    params = stack.init(torch.Generator(device=gdev).manual_seed(0), dev)
+    with torch.no_grad():
+        if dev.type == "meta":
+            x = torch.empty((batch, stack.seq_len), dtype=torch.int64,
+                            device=dev)
+        else:
+            x, _ = stack.dummy_batch(
+                torch.Generator(device=dev).manual_seed(1), batch)
+        xi = x if cut == 0 else stack.apply_segment(params, x, 0, cut)
+        counter = FlopCounterMode(display=False)
+        with counter:
+            stack.apply_segment(params, xi, cut, cut + 1)
+    return float(counter.get_total_flops()) / batch
+
+
+def crosscheck_flops(stack: LMLayerStack, cut: int, batch: int = 1,
+                     device=None) -> Tuple[float, float]:
+    """(analytic, counted) per-sample forward FLOPs of one cut."""
+    analytic = stack.cut_meta()[cut].flops_fwd
+    return analytic, block_flops(stack, cut, batch, device)

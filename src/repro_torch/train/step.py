@@ -15,7 +15,10 @@ The port of :mod:`repro.train.step`.  Two gradient-sync modes:
 Microbatching (gradient accumulation) splits the batch into ``[k, B/k,
 ...]`` slices and accumulates their gradients in f32, as the reference's
 scan does: activation memory drops k-fold, and loss and gradients are
-the means over the k slices.
+the means over the k slices.  The slices' loop is
+:func:`repro_torch.launch.hlo_analysis.trip_range`: a plain ``range``,
+but under the dry run's counter its second slice stands for the other
+``k - 1`` (the reference's scan body times its trip count).
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from repro_torch.distrib import compat
 from repro_torch.distrib.sharding import axis_names, axis_size
 from repro_torch.distrib.tiered_sync import (TierAssignment, group_mean,
                                              sync_seed, tiered_grad_sync)
+from repro_torch.launch.hlo_analysis import trip_range
 from repro_torch.models.lm.common import shard_hint
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.tree import grad, grad_leaves, tree_map
@@ -69,7 +73,7 @@ def _microbatched_grads(loss_fn: Callable, params: Tree, batch: Tree,
 
     mb = tree_map(resh, batch)
     loss_acc, grad_acc = 0.0, tree_map(lambda p: 0.0, params)   # f32 sums
-    for i in range(microbatches):
+    for i in trip_range(microbatches):
         loss, grads = _value_and_grad(loss_fn, params,
                                       tree_map(lambda x: x[i], mb))
         loss_acc = loss_acc + loss
