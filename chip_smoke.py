@@ -9,9 +9,10 @@ Phases (every one that fails exits non-zero; there is no CPU path):
 2. Build: every CUDA source under ``src/repro_torch/kernels/csrc/`` with
    ``nvcc`` (one process per source, all at once); the tensor-core
    instructions (HMMA from ``mma.sync``, HGMMA from ``wgmma``) of each
-   ``flash_fwd`` and ``gla_fwd`` instantiation, by ``cuobjdump -sass``,
-   beside its registers, spills and ``ptxas``'s injected-warpgroup notes:
-   every tensor-core (``*_bf16``) one must have some, and every
+   ``flash_fwd`` and ``gla_fwd`` instantiation, by ``cuobjdump -sass``
+   (the three libraries' listings are kept for phase 15), beside its
+   registers, spills and ``ptxas``'s injected-warpgroup notes: every
+   tensor-core (``*_bf16``) one must have some, and every
    ``flash_fwd_bf16`` and ``gla_fwd_wide_bf16`` one HGMMA.
 3. Kernels vs their plain versions, on the card, at the main paths'
    shapes and a few more (the quantizer's AlexNet rows are derived from
@@ -133,7 +134,24 @@ Phases (every one that fails exits non-zero; there is no CPU path):
     launch.  (c) ``crosscheck_flops`` on the card for block 1 of
     fleet-gla, fleet-moe and fleet-xlstm at T=512, each within the
     reference's band.
-15. One JSON line of kernels; last, the ``{"ok": true, ...}`` line.
+15. analysis/, the port's static gate against the card: (a) ``python -m
+    repro_torch.analysis --check-baseline`` in a subprocess must exit 0;
+    (b) every HMMA / HGMMA in every instantiation of the three libraries,
+    in phase 2's ``cuobjdump -sass`` listings, must accumulate in F32, and
+    every ``wgmma`` / ``mma.sync`` shape the static RA503 check finds in a
+    source must appear in its library's SASS; (c) each kernel's C entry,
+    called through its ``ctypes`` binding at ragged extents (the quantizer
+    at odd ``m`` and ``n`` no multiple of its slice, both entries, f32 and
+    bf16; flash at ``n_q = S = 1000``, head widths 64 and 128 in bf16 and
+    the f32 route; the narrow GLA at ``n_t = 1000``, ``W = 128``, dk = dv =
+    64; the wide GLA at dk = dv = 256, ``n_t = 300``; the f32 GLA at dv 72),
+    each output a view inside a larger buffer of sentinels (NaN, or -128
+    for int8 codes: values the kernels never write) with ``GUARD_BYTES``
+    on either side, must write every element of every output and no guard
+    byte, and agree with the plain version under phase 3's rule.  The
+    RA501/RA502 twins at run time; ``compute-sanitizer`` does not run on
+    the card's machine.
+16. One JSON line of kernels; last, the ``{"ok": true, ...}`` line.
 
 Each main path (4, 5 and 6 per plan, 7, 8 per plan, 9 per generate call,
 10 per plan, 11, 12, 13 per tier setting and the cloud_mesh step, 14's
@@ -306,9 +324,19 @@ def kernel_label(symbol: str):
 WGMMA_KERNELS = ("flash_fwd_bf16", "gla_fwd_bf16", "gla_fwd_wide_bf16")
 
 
-def tensor_core_use(build, log: str, name: str = "flash_attention") -> dict:
+def sass_listing(build, name: str) -> str:
+    """``cuobjdump -sass`` of the built library ``name``."""
+    tool = Path(build._nvcc()).with_name("cuobjdump")
+    return subprocess.run(
+        [str(tool), "-sass", str(build._target(name))],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+
+
+def tensor_core_use(build, log: str, name: str = "flash_attention",
+                    sass: str = None) -> dict:
     """Tensor-core instructions in each kernel instantiation of the built
-    library ``name`` (``cuobjdump -sass``): HMMA (``mma.sync``) and HGMMA
+    library ``name`` (its ``cuobjdump -sass`` listing ``sass``, read here
+    when not given): HMMA (``mma.sync``) and HGMMA
     (``wgmma``), beside the registers and spill bytes ``ptxas -v``
     reported for it and the count of its ``ptxas`` performance notes
     (``C75xx``: a ``warpgroup.arrive`` or ``wait`` the compiler injected,
@@ -316,11 +344,8 @@ def tensor_core_use(build, log: str, name: str = "flash_attention") -> dict:
     instantiation (``*_bf16<...>``) has one or the other, and every one
     of :data:`WGMMA_KERNELS` has HGMMA; the CUDA-core ones (f32, and bf16
     shapes the tensor-core kernels do not take) need none."""
-    tool = Path(build._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run(
-        [str(tool), "-sass", str(build._target(name))],
-        capture_output=True, text=True, timeout=300, check=True).stdout
-
+    if sass is None:
+        sass = sass_listing(build, name)
     rows, fn = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -2656,6 +2681,235 @@ def run_launch(torch, kernels, root: Path, cfg, shape) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: analysis/ — the port's static gate, against the card.
+# ---------------------------------------------------------------------------
+
+# Sentinels on either side of each output of (c): a multiple of 128 bytes,
+# so a view inside the buffer keeps TMA's 16-byte alignment.
+GUARD_BYTES = 256
+# (c)'s ragged extents.  The quantizer: (dtype, m, n), m odd and n no
+# multiple of plan_slices' slice.  Flash: (dtype, BH, BKV, n_q = S, hd,
+# causal).  The GLA: (name, dtype, BH, n_t, dk, dv, W, normalize, draw),
+# one row per kernel dispatch picks (narrow and wide tensor-core, CUDA
+# cores), each n_t no multiple of W.
+RAGGED_QUANT = (("f32", 37, 50003), ("bf16", 5, 4099))
+RAGGED_FLASH = (("bf16", 4, 2, 1000, 64, True),
+                ("bf16", 4, 2, 1000, 128, True),
+                ("f32", 4, 2, 1000, 64, False))
+RAGGED_GLA = (
+    ("narrow_bf16_8_1000_64_W128", "bf16", 8, 1000, 64, 64, 128, False,
+     "mamba2"),
+    ("wide_bf16_4_300_256_W128", "bf16", 4, 300, 256, 256, 128, True,
+     "mlstm"),
+    ("f32_4_1000_64x72_W128", "f32", 4, 1000, 64, 72, 128, False, "mamba2"),
+)
+
+
+def run_gate(root: Path) -> dict:
+    """(a) ``python -m repro_torch.analysis --check-baseline`` in a
+    subprocess; fails unless it exits 0.  Returns its summary."""
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.analysis",
+                          "--check-baseline", "--json", "-"], cwd=str(root),
+                         env=env, capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        fail(f"python -m repro_torch.analysis --check-baseline exited "
+             f"{out.returncode}:\n{out.stdout[-4000:]}{out.stderr[-4000:]}")
+    summary = json.loads(out.stdout)["summary"]
+    print(f"  python -m repro_torch.analysis --check-baseline: {summary}")
+    return summary
+
+
+def check_sass_accumulators(root: Path, sass: dict) -> dict:
+    """(b) Each library's SASS (``sass``: phase 2's listings) against the
+    MMA sites the static RA503 check finds in its source: every HMMA /
+    HGMMA accumulates in F32, and every ``wgmma`` / ``mma.sync`` shape
+    there was emitted."""
+    from repro_torch.analysis.base import SourceFile
+    from repro_torch.analysis.cuda_checks import check_sass, mma_sites
+    rows = {}
+    for name, listing in sorted(sass.items()):
+        rel = f"src/repro_torch/kernels/csrc/{name}.cu"
+        sites = mma_sites(SourceFile(rel, (root / rel).read_text()).lexed)
+        n, problems = check_sass(sites, listing)
+        rows[name] = {"sites": len(sites), "instructions": n,
+                      "problems": problems}
+        print(f"  {name}: {len(sites)} MMA sites in the source, {n} HMMA / "
+              f"HGMMA in the SASS, all F32 and every site emitted: "
+              f"{not problems}")
+        if problems:
+            fail(f"{name}: the SASS breaks RA503: {problems}")
+    if not all(rows[n]["sites"] and rows[n]["instructions"]
+               for n in ("flash_attention", "gla_scan")):
+        fail(f"no MMA site or no tensor-core instruction where the "
+             f"tensor-core kernels live: {rows}")
+    return rows
+
+
+def guarded(torch, shape, dtype, dev) -> tuple:
+    """``(buffer, view)``: a tensor of ``shape`` inside a buffer that holds
+    ``GUARD_BYTES`` more on either side, every element a sentinel the
+    kernels never write (NaN; -128 in int8, outside the codes'
+    [-127, 127])."""
+    g = GUARD_BYTES // torch.empty((), dtype=dtype).element_size()
+    n = math.prod(shape)
+    fill = -128 if dtype == torch.int8 else float("nan")
+    buf = torch.full((g + n + g,), fill, dtype=dtype, device=dev)
+    return buf, buf[g:g + n].view(shape)
+
+
+def check_guarded(torch, case: str, outs: dict) -> dict:
+    """Per output of ``outs`` (``{label: (buffer, view)}`` from
+    :func:`guarded`, after the launch): the elements of the view still
+    the sentinel and the guard elements no longer bitwise the sentinel.
+    Fails unless both are 0 for every output."""
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+            torch.int8: torch.int8}
+    report = {}
+    for label, (buf, view) in outs.items():
+        g = (buf.numel() - view.numel()) // 2
+        as_int = ints[buf.dtype]
+        sentinel = guarded(torch, (1,), buf.dtype, buf.device)[1]
+        unwritten = view == -128 if buf.dtype == torch.int8 \
+            else torch.isnan(view)
+        guard = torch.cat([buf[:g], buf[g + view.numel():]])
+        touched = guard.view(as_int) != sentinel.view(as_int)
+        report[label] = {"unwritten": int(unwritten.sum()),
+                         "guard_touched": int(touched.sum())}
+        if report[label]["unwritten"] or report[label]["guard_touched"]:
+            fail(f"{case}: {label} {tuple(view.shape)} left "
+                 f"{report[label]['unwritten']} elements unwritten and "
+                 f"wrote {report[label]['guard_touched']} guard elements")
+    return report
+
+
+def ragged_quantizer(torch, iq, ref, g, stream) -> dict:
+    """Both C entries of the quantizer at ``RAGGED_QUANT``, bitwise."""
+    quant, wire, _ = iq._kernels()
+    dev, rows = g.device, {}
+    for dt, m, n in RAGGED_QUANT:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        bf16 = int(dtype == torch.bfloat16)
+        x = (3.0 * torch.randn(m, n, generator=g, device=dev)).to(dtype)
+        u = torch.rand(m, n, generator=g, device=dev)
+        S, slice_elems = iq.plan_slices(m, n, x.element_size())
+        if m % 2 == 0 or n % slice_elems == 0:
+            fail(f"RAGGED_QUANT {dt} {m}x{n} is not ragged: slice "
+                 f"{slice_elems}")
+        outs = {"q": guarded(torch, (m, n), torch.int8, dev),
+                "scale": guarded(torch, (m,), torch.float32, dev),
+                "partial": guarded(torch, (m, S), torch.float32, dev),
+                "wire_out": guarded(torch, (m, n), dtype, dev),
+                "wire_partial": guarded(torch, (m, S), torch.float32, dev)}
+        (_, q), (_, scale), (_, part), (_, out), (_, wpart) = outs.values()
+        errs = (quant(x.data_ptr(), bf16, u.data_ptr(), 0.0, q.data_ptr(),
+                      scale.data_ptr(), part.data_ptr(), m, n, S,
+                      slice_elems, stream),
+                wire(x.data_ptr(), bf16, out.data_ptr(), wpart.data_ptr(), m,
+                     n, S, slice_elems, stream))
+        torch.cuda.synchronize()
+        name = f"int8_quant_{dt}_{m}x{n}"
+        if any(errs):
+            fail(f"{name}: CUDA errors {errs}")
+        guards = check_guarded(torch, name, outs)
+        q_r, s_r = ref.ref_quantize_int8(x, u)
+        equal = same_bits(torch, q, q_r) and same_bits(torch, scale, s_r) \
+            and same_bits(torch, out, ref.ref_wire_qdq_int8(x))
+        rows[name] = {"slices": S, "slice_elems": slice_elems,
+                      "equal": equal, "outputs": guards}
+        print(f"  {name:34s} S={S} slice {slice_elems}: every output whole, "
+              f"guards untouched; bitwise equal {equal}")
+        if not equal:
+            fail(f"{name}: disagrees with the plain quantizer")
+    return rows
+
+
+def ragged_flash(torch, fa, ref, g, stream) -> dict:
+    """The flash C entry at ``RAGGED_FLASH`` under the TOL rule."""
+    fn, dev, rows = fa._kernel(), g.device, {}
+    for dt, BH, BKV, T, hd, causal in RAGGED_FLASH:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        q = torch.randn(BH, T, hd, generator=g, device=dev).to(dtype)
+        k = torch.randn(BKV, T, hd, generator=g, device=dev).to(dtype)
+        v = torch.randn(BKV, T, hd, generator=g, device=dev).to(dtype)
+        outs = {"o": guarded(torch, (BH, T, hd), dtype, dev),
+                "lse": guarded(torch, (BH, T), torch.float32, dev)}
+        (_, o), (_, lse) = outs.values()
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 lse.data_ptr(), int(dtype == torch.bfloat16), BH, BKV, T, T,
+                 hd, int(causal), 0, 1.0 / hd ** 0.5, stream)
+        torch.cuda.synchronize()
+        name = f"flash_{dt}_{BH}x{T}_{hd}{'_causal' if causal else ''}"
+        if err:
+            fail(f"{name}: CUDA error {err}")
+        guards = check_guarded(torch, name, outs)
+        o_r, lse_r = ref.ref_flash_attention(q, k, v, causal=causal)
+        ok_o, err_o, ex_o = tol_check(torch, "flash_o", o, o_r, dtype)
+        ok_l, err_l, ex_l = tol_check(torch, "flash_lse", lse, lse_r, dtype)
+        rows[name] = {"ok": ok_o and ok_l, "o_err_over_tol": ex_o,
+                      "lse_err_over_tol": ex_l, "outputs": guards}
+        print(f"  {name:34s} every output whole, guards untouched; o "
+              f"{ex_o:.3f} and lse {ex_l:.3f} of the TOL")
+        if not rows[name]["ok"]:
+            fail(f"{name}: disagrees with the plain version")
+    return rows
+
+
+def ragged_gla(torch, gs, ref, g, stream) -> dict:
+    """The GLA C entry at ``RAGGED_GLA`` under the TOL rule."""
+    fn, dev, rows = gs._kernel(), g.device, {}
+    for name, dt, BH, T, dk, dv, W, normalize, draw in RAGGED_GLA:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        q, k, v, a = gla_inputs(torch, g, BH, T, dk, dv, dtype, draw)
+        outs = {"y": guarded(torch, (BH, T, dv), dtype, dev),
+                "S": guarded(torch, (BH, dk, dv), torch.float32, dev),
+                "n": guarded(torch, (BH, dk), torch.float32, dev)}
+        (_, y), (_, S), (_, n) = outs.values()
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), a.data_ptr(),
+                 y.data_ptr(), S.data_ptr(), n.data_ptr(),
+                 int(dtype == torch.bfloat16), BH, T, dk, dv, W,
+                 int(normalize), stream)
+        torch.cuda.synchronize()
+        kernel = gla_kernel(dtype == torch.bfloat16, dk, dv)
+        if err:
+            fail(f"{name}: CUDA error {err}")
+        guards = check_guarded(torch, name, outs)
+        y_r, S_r, n_r = ref.ref_gla(q, k, v, a, normalize=normalize)
+        checks = [tol_check(torch, "gla_y", y, y_r, dtype),
+                  tol_check(torch, "gla_state", S, S_r, dtype),
+                  tol_check(torch, "gla_state", n, n_r, dtype)]
+        rows[name] = {"kernel": kernel, "ok": all(c[0] for c in checks),
+                      "err_over_tol": [c[2] for c in checks],
+                      "outputs": guards}
+        print(f"  {name:34s} ({kernel}) every output whole, guards "
+              f"untouched; y, S, n at "
+              f"{', '.join(f'{c[2]:.3f}' for c in checks)} of the TOL")
+        if not rows[name]["ok"]:
+            fail(f"{name}: disagrees with the plain version")
+    return rows
+
+
+def run_analysis(torch, kernels, ref, root: Path, sass: dict) -> dict:
+    """Phase 15: (a) the gate, (b) RA503 against the SASS, (c) every
+    kernel entry at ragged extents inside guard bands; the phase's
+    seconds."""
+    t0 = time.perf_counter()
+    gate = run_gate(root)
+    accumulators = check_sass_accumulators(root, sass)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    stream = torch.cuda.current_stream().cuda_stream
+    ragged = {**ragged_quantizer(torch, kernels["int8_quant"], ref, g,
+                                 stream),
+              **ragged_flash(torch, kernels["flash_attention"], ref, g,
+                             stream),
+              **ragged_gla(torch, kernels["gla_scan"], ref, g, stream)}
+    out = {"gate": gate, "sass": accumulators, "ragged": ragged,
+           "phase_s": time.perf_counter() - t0}
+    print(f"  analysis/ phase: {out['phase_s']:.1f} s")
+    return out
+
+
 def steady(ms):
     rest = sorted(ms[1:])
     return {"median": statistics.median(rest), "max": rest[-1],
@@ -2718,10 +2972,12 @@ def main() -> int:
         for line in rep["log"].splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}")
+    sass = {name: sass_listing(_build, name) for name in sorted(built)}
     tensor_cores = {}
     for name in ("flash_attention", "gla_scan"):
         print(f"{name} tensor-core use (cuobjdump -sass):")
-        tensor_cores[name] = tensor_core_use(_build, built[name]["log"], name)
+        tensor_cores[name] = tensor_core_use(_build, built[name]["log"], name,
+                                             sass[name])
 
     # 3. kernels vs plain versions
     t0 = time.perf_counter()
@@ -2882,6 +3138,12 @@ def main() -> int:
                         ShapeSpec("hier", HIER_T, HIER_B, "train"))
     vs_card = launch["vs_card"]
 
+    # 15. analysis/: the static gate, the SASS's accumulators, and every
+    # kernel entry at ragged extents inside guard bands
+    print("analysis/: the port's gate, RA503 against the SASS, RA501/502 "
+          "at run time")
+    analysis = run_analysis(torch, kernels, ref, root, sass)
+
     path_runs = {"alexnet_M1": runs[1], "alexnet_M4": runs[4],
                  "alexnet_train_M1": train_runs[1],
                  "alexnet_train_M4": train_runs[4],
@@ -2928,14 +3190,14 @@ def main() -> int:
         "measure_profile": measured,
         "zamba2_7b": z7, "serve": serve_runs, "fleet_families": fam_runs,
         "qwen2_moe_2_layers": qm, "xlstm_350m_flat": flat,
-        "distrib": distrib, "launch": launch,
+        "distrib": distrib, "launch": launch, "analysis": analysis,
         "launches": paths,
         "tensor_cores": tensor_cores,
         "quantizer_cases": list(qcases.values()),
         "flash_cases": list(fcases.values()),
         "gla_cases": list(gcases.values())}, default=str))
 
-    # 15. kernels line
+    # 16. kernels line
     def entry(name, source, replaces, main, cases, ok_key):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,

@@ -126,6 +126,7 @@ def build_variants(name: str, sources: Dict[str, str]
         if proc.returncode:
             raise RuntimeError(f"nvcc failed on {name} variant {variant}:\n"
                                f"{text}")
+        # repro-lint: disable-next=RA101 one load per variant: each pass loads another source's library, once
         libs[variant] = (ctypes.CDLL(str(lib)), text)
     return libs
 
