@@ -151,11 +151,23 @@ Phases (every one that fails exits non-zero; there is no CPU path):
     byte, and agree with the plain version under phase 3's rule.  The
     RA501/RA502 twins at run time; ``compute-sanitizer`` does not run on
     the card's machine.
-16. One JSON line of kernels; last, the ``{"ok": true, ...}`` line.
+16. The dense train step partitioned over DTensor, on a one-rank NCCL
+    group (a ``FileStore``; destroyed after): phase 13's flat step
+    (qwen2.5-3b widths, 8 layers, bf16, B=4 x 512, AdamW) through
+    ``distrib.partition.partitioned_step`` on a ``(data, model)`` mesh
+    of (1, 1), at ``fsdp=False`` and ``True``, 3 steps each from the
+    seeded state under deterministic algorithms: losses and state
+    bitwise the unpartitioned step's (or else the first leaf that
+    differs printed and each loss held to one bf16 rounding), flash
+    launched 16 times a step on the local shards, every leaf's
+    placements kept, ``CommDebugMode``'s collectives per step by type
+    printed; 2 more steps of each timed beside the flat step's, and the
+    peak.
+17. One JSON line of kernels; last, the ``{"ok": true, ...}`` line.
 
 Each main path (4, 5 and 6 per plan, 7, 8 per plan, 9 per generate call,
 10 per plan, 11, 12, 13 per tier setting and the cloud_mesh step, 14's
-counted flat step)
+counted flat step, 16 per step of each fsdp setting)
 zeroes every launch counter just before its steps and reads them just
 after, and fails unless each kernel of the path launched exactly as
 often as the schedule's executed segments (flash per attention or MoE
@@ -2910,6 +2922,158 @@ def run_analysis(torch, kernels, ref, root: Path, sass: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the dense train step partitioned over DTensor.
+# ---------------------------------------------------------------------------
+
+# phase 13's flat step through ``partitioned_step`` on a (1, 1) mesh:
+# PART_STEPS steps checked against the flat step, then PART_TIMED timed
+BF16_LOSS_RTOL = 2.0 ** -8   # tests/test_torch_train_int8_lm.py
+PART_STEPS, PART_TIMED = 3, 2
+
+
+def drive(torch, kernels, step, state, batches, kept=None) -> dict:
+    """``PART_STEPS`` checked steps of ``step`` from ``state`` (each one's
+    loss and launches; given ``kept``, each under ``CommDebugMode``, its
+    collectives by type and ``kept(state)`` after it), then
+    ``PART_TIMED`` timed steps; the peak over all of them, and above the
+    bytes allocated before them (what the steps themselves add: the
+    caller may hold other states).  Returns the state after the checked
+    steps as ``state``."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    out = {"losses": [], "launches": [], "comms": [], "kept": [],
+           "check_ms": [], "step_ms": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    checked = None
+    for i, b in enumerate(batches):
+        timed = i >= PART_STEPS
+        mode = CommDebugMode() if kept and not timed else \
+            contextlib.nullcontext()
+        zero_counters(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mode:
+            state, met = step(state, b, i)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if timed:
+            out["step_ms"].append(ms)
+            continue
+        out["check_ms"].append(ms)
+        out["losses"].append(met["loss"])
+        out["launches"].append(read_counters(kernels))
+        if kept:
+            out["comms"].append({str(k): v for k, v in
+                                 mode.get_comm_counts().items()})
+            out["kept"].append(kept(state))
+        if i == PART_STEPS - 1:
+            checked = state
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["added_bytes"] = out["peak_bytes"] - start
+    out["state"] = checked
+    return out
+
+
+def run_partition(torch, kernels, tmp: Path, lm_model, optim, train,
+                  make_batch_fn, shape, cfg) -> dict:
+    """Phase 16 on a one-rank NCCL group (a ``FileStore`` under ``tmp``),
+    destroyed at the end: phase 13's flat step (``make_train_step``,
+    AdamW, B x T) through ``distrib.partition.partitioned_step`` on a
+    ``(data, model)`` mesh of (1, 1) at ``fsdp=False`` and ``True``, from
+    the seeded state under deterministic algorithms, against the
+    unpartitioned step: the losses and final state bitwise equal (or the
+    first leaf that differs printed and each loss held to one bf16
+    rounding), flash launched as the layers imply every step, every
+    leaf's placements kept, ``CommDebugMode``'s collectives per step by
+    type; step ms beside the flat step's and the peak."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.distrib import partition, sharding
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp / "store"), 1), rank=0, world_size=1,
+        device_id=torch.device("cuda", 0))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        model = lm_model.build_model(cfg)
+        opt = optim.AdamW(lr=HIER_LR)
+        state0 = train.init_state(model, opt, torch.Generator(
+            device="cuda").manual_seed(SEED), "cuda")
+        batch_fn = make_batch_fn(cfg, shape, seed=BATCH_SEED)
+        batches = [{k: torch.as_tensor(v, device="cuda")
+                    for k, v in batch_fn(i).items()}
+                   for i in range(PART_STEPS + PART_TIMED)]
+        one = {"int8_quant": 0, "gla_scan": 0,
+               "flash_attention": flat_launches(cfg)["flash_attention"]}
+        step = train.make_train_step(model, opt)
+        with deterministic(torch):
+            flat = drive(torch, kernels, step, state0, batches)
+        want = dict(leaves(flat.pop("state")))
+        print(f"  {cfg.name} flat: losses "
+              f"{[float(x) for x in flat['losses']]}; step ms "
+              f"{flat['step_ms']}; peak {flat['peak_bytes'] / 2 ** 30:.3f} "
+              f"GiB ({flat['added_bytes'] / 2 ** 30:.3f} above the start); "
+              f"launches {flat['launches']}")
+        out = {"mesh": str(mesh), "flat": {
+            k: v for k, v in flat.items() if k != "losses"}}
+        out["flat"]["losses"] = [float(x) for x in flat["losses"]]
+        for fsdp in (False, True):
+            label = f"{cfg.name} partitioned fsdp={fsdp}"
+            shard = {"params": sharding.param_shardings(
+                mesh, state0["params"], fsdp), "opt":
+                sharding.opt_state_shardings(mesh, state0["opt"], fsdp)}
+            pstep = partition.partitioned_step(
+                step, mesh, shard, sharding.batch_shardings(mesh,
+                                                            batches[0]))
+            placed = dict(leaves(shard))
+
+            def kept(state):
+                return all(tuple(placed[k]) == x.placements
+                           for k, x in leaves(state))
+            with deterministic(torch):
+                run = drive(torch, kernels, pstep, partition.distribute_tree(
+                    state0, mesh, shard), batches, kept=kept)
+            got = dict(leaves(run.pop("state")))
+            differs = [k for k in want if not torch.equal(
+                got[k].to_local(), want[k])]
+            losses = [float(x) for x in run["losses"]]
+            bitwise = not differs and all(torch.equal(a, b) for a, b in zip(
+                run["losses"], flat["losses"]))
+            worst = max(abs(a - b) / abs(b) for a, b in
+                        zip(losses, out["flat"]["losses"]))
+            why = "" if bitwise else \
+                f" (first leaf differing {differs[:1]}, loss rel {worst!r})"
+            print(f"  {label}: losses {losses}; bitwise the flat step: "
+                  f"{bitwise}{why}; placements kept {run['kept']}; launches "
+                  f"{run['launches']} (expected {one} a step); collectives "
+                  f"a step {run['comms']}; step ms {run['step_ms']} "
+                  f"(checked steps, under CommDebugMode, {run['check_ms']}); "
+                  f"peak {run['peak_bytes'] / 2 ** 30:.3f} GiB "
+                  f"({run['added_bytes'] / 2 ** 30:.3f} above the start)")
+            if not bitwise and worst > BF16_LOSS_RTOL:
+                fail(f"{label}: loss {worst!r} from the flat step's, past "
+                     f"one bf16 rounding")
+            if not all(run["kept"]):
+                fail(f"{label}: a leaf's placements changed")
+            if run["launches"] != [one] * PART_STEPS:
+                fail(f"{label}: launches {run['launches']}, expected {one} "
+                     f"a step")
+            del got
+            torch.cuda.empty_cache()
+            out[f"fsdp_{fsdp}"] = dict(
+                run, losses=losses, bitwise=bitwise, differs=differs[:8],
+                loss_rel=worst, launches_per_step=one,
+                launches={n: sum(c[n] for c in run["launches"])
+                          for n in one})
+        del want, state0
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
 def steady(ms):
     rest = sorted(ms[1:])
     return {"median": statistics.median(rest), "max": rest[-1],
@@ -3144,6 +3308,21 @@ def main() -> int:
           "at run time")
     analysis = run_analysis(torch, kernels, ref, root, sass)
 
+    # 16. the dense train step partitioned over DTensor (one NCCL rank)
+    print(f"main path: {HIER_ARCH} {HIER_REDUCED} flat step through "
+          f"distrib.partition.partitioned_step on a (data, model) = (1, 1) "
+          f"mesh, fsdp False and True, {PART_STEPS} checked and "
+          f"{PART_TIMED} timed steps each")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        part = run_partition(torch, kernels, Path(tmp), lm_model=lm_model,
+                             optim=optim, train=train,
+                             make_batch_fn=make_lm_batch_fn,
+                             shape=ShapeSpec("hier", HIER_T, HIER_B,
+                                             "train"), cfg=hcfg)
+    print(f"  phase 16 took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
     path_runs = {"alexnet_M1": runs[1], "alexnet_M4": runs[4],
                  "alexnet_train_M1": train_runs[1],
                  "alexnet_train_M4": train_runs[4],
@@ -3158,7 +3337,9 @@ def main() -> int:
                  **{f"hier_{k}": r
                     for k, r in distrib["hier"]["tiers"].items()},
                  "alexnet_cloud_tree_E2": distrib["cloud"],
-                 "dryrun_flat_step": vs_card}
+                 "dryrun_flat_step": vs_card,
+                 **{f"partition_{k}": part[k]
+                    for k in ("fsdp_False", "fsdp_True")}}
     paths = {k: r["launches"] for k, r in path_runs.items()}
     held = set(alexnet_rows)
     seen = {k: r["wire_rows"] for k, r in path_runs.items()
@@ -3191,13 +3372,14 @@ def main() -> int:
         "zamba2_7b": z7, "serve": serve_runs, "fleet_families": fam_runs,
         "qwen2_moe_2_layers": qm, "xlstm_350m_flat": flat,
         "distrib": distrib, "launch": launch, "analysis": analysis,
+        "partition": part,
         "launches": paths,
         "tensor_cores": tensor_cores,
         "quantizer_cases": list(qcases.values()),
         "flash_cases": list(fcases.values()),
         "gla_cases": list(gcases.values())}, default=str))
 
-    # 16. kernels line
+    # 17. kernels line
     def entry(name, source, replaces, main, cases, ok_key):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,

@@ -1,4 +1,5 @@
-"""Where the port runs: the card unless the caller names another device."""
+"""Where the port runs: the card unless the caller names another device;
+and whether a tensor is spread over a mesh's devices (a DTensor)."""
 from __future__ import annotations
 
 from typing import Optional, Union
@@ -15,3 +16,9 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
                            "and none is available; pass device='cpu' to "
                            "run on the CPU")
     return dev
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a ``torch.distributed.tensor.DTensor``."""
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)

@@ -1,6 +1,7 @@
 """The port of :mod:`repro.distrib`: sharding rules as DTensor placements,
-the tiered gradient sync on ``torch.distributed``, and the ambient mesh
-(:mod:`repro_torch.distrib.compat`).  Importing it starts no process
+the tiered gradient sync on ``torch.distributed``, the ambient mesh
+(:mod:`repro_torch.distrib.compat`) and the partitioned train step
+(:mod:`repro_torch.distrib.partition`).  Importing it starts no process
 group."""
 from repro_torch.distrib.sharding import (MeshShape, batch_shardings,
                                           batch_spec, cache_shardings,

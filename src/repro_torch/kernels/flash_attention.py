@@ -9,7 +9,10 @@ q ``[BH, T, hd]``, k/v ``[BKV, S, hd]``.
 
 A tensor on the CPU goes to the plain version
 (:func:`repro_torch.kernels.ref.ref_flash_attention`); a CUDA tensor
-launches the kernel or raises.  ``launches`` counts the kernel's
+launches the kernel or raises.  A DTensor raises wherever it lies: the
+kernel takes each rank's local shard, which
+:func:`repro_torch.kernels.ops.flash_attention` passes it, and never
+gathers one.  ``launches`` counts the kernel's
 launches, so a run can show that its main path went through it.
 """
 from __future__ import annotations
@@ -20,6 +23,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.device import is_dtensor
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ref_flash_attention
 
@@ -52,6 +56,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``BH``; all f32 or all bf16, contiguous, on one device.  Returns
     ``(o [BH, T, hd] in q's dtype, lse f32 [BH, T])``."""
     global launches
+    if any(is_dtensor(t) for t in (q, k, v)):
+        raise TypeError("flash_attention_fwd takes each rank's local "
+                        "tensors, not a DTensor (a wrapper with no storage "
+                        "of its own): repro_torch.kernels.ops."
+                        "flash_attention runs it on the local shards")
     if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
         raise ValueError(f"flash_attention_fwd needs q [BH, T, hd] and k, v "
                          f"[BKV, S, hd]; got {tuple(q.shape)}, "

@@ -2,7 +2,8 @@
 
 * :func:`flash_attention` — GQA flash attention over ``[B, T, H, hd]``,
   a ``torch.autograd.Function`` whose backward is the chunked pass over K
-  blocks that consumes the kernel's log-sum-exp.
+  blocks that consumes the kernel's log-sum-exp.  On DTensors it runs on
+  each rank's local shard (:func:`_flash_on_shards`).
 * :func:`gla_scan` — the chunked gated linear recurrence over
   ``[B, T, H, d]``; its backward is the gradient of the plain
   ``chunked_gla``.
@@ -21,6 +22,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.device import is_dtensor
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gla_scan as gs
 from repro_torch.kernels import int8_quant as iq
@@ -94,7 +96,10 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Model layout: q [B, T, H, hd]; k/v [B, S, KV, hd] -> [B, T, H, hd]."""
+    """Model layout: q [B, T, H, hd]; k/v [B, S, KV, hd] -> [B, T, H, hd].
+    DTensors go through :func:`_flash_on_shards`."""
+    if is_dtensor(q):
+        return _flash_on_shards(q, k, v, bool(causal), int(window))
     B, T, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
     qh = q.transpose(1, 2).contiguous().reshape(B * H, T, hd)
@@ -102,6 +107,70 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     vh = v.transpose(1, 2).contiguous().reshape(B * KV, S, hd)
     o = _FlashAttention.apply(qh, kh, vh, bool(causal), int(window))
     return o.reshape(B, H, T, hd).transpose(1, 2)
+
+
+def _kv_group(k: torch.Tensor, h0: int, heads: int, rep: int
+              ) -> torch.Tensor:
+    """The KV heads that query heads ``[h0, h0 + heads)`` read (head ``h``
+    reads KV head ``h // rep``), as ``[B, S, KV', hd]`` whose head ``j``
+    the kernel pairs with local query head ``j * KV' // heads``: a slice
+    when the heads cover their groups evenly, else one KV head per query
+    head."""
+    idx = [(h0 + j) // rep for j in range(heads)]
+    g0, n = idx[0], idx[-1] + 1 - idx[0]
+    if heads % n == 0 and idx == [g0 + j * n // heads for j in range(heads)]:
+        return k[:, :, g0:g0 + n]
+    return k[:, :, idx]
+
+
+def _flash_on_shards(q, k, v, causal: bool, window: int) -> torch.Tensor:
+    """Flash attention of DTensors, the kernel run on each rank's local
+    shard of the model layout.
+
+    q goes to batch over the DP axes and heads over ``model``; k and v to
+    the same batch split and KV heads over ``model`` where they divide
+    it.  On the layout :func:`repro_torch.models.lm.attention._qkv_hints`
+    gives, those are no-ops: no collective.  Where the KV heads are
+    replicated over ``model`` and the query heads sharded (GQA or MQA
+    with few KV heads), each rank slices the KV heads its own query
+    heads read, and their gradient comes back ``Partial`` over
+    ``model``.  Where the query heads do not divide ``model`` (the hints
+    then shard q's sequence), q's sequence is gathered first, every rank
+    computes all heads, and o is re-sharded to q's layout after: a
+    causal offset of the rank's query rows is a kernel change left
+    undone."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from repro_torch.distrib.sharding import (axis_names, axis_size,
+                                              batch_spec, placements)
+    mesh = q.device_mesh
+    B, T, H, hd = q.shape
+    KV = k.shape[2]
+    model = axis_size(mesh, "model")
+    by_heads = "model" in axis_names(mesh) and H % model == 0 and \
+        H >= model
+    kv_heads = by_heads and KV % model == 0 and KV >= model
+    dp = batch_spec(mesh, B, 1)[0]
+    qp = placements(mesh, (dp, None, "model" if by_heads else None, None))
+    kp = placements(mesh, (dp, None, "model" if kv_heads else None, None))
+    layout = q.placements
+    ql = q.redistribute(mesh, qp).to_local()
+    if by_heads and not kv_heads:
+        # each rank's slice of the replicated K/V: its gradient is this
+        # rank's share of the sum over ``model``
+        kg = list(kp)
+        kg[axis_names(mesh).index("model")] = Partial()
+        kl, vl = (t.redistribute(mesh, kp).to_local(grad_placements=kg)
+                  for t in (k, v))
+        Hl = H // model
+        h0 = mesh.get_local_rank("model") * Hl
+        kl, vl = (_kv_group(t, h0, Hl, H // KV) for t in (kl, vl))
+    else:
+        kl, vl = (t.redistribute(mesh, kp).to_local() for t in (k, v))
+    o = flash_attention(ql, kl, vl, causal=causal, window=window)
+    o = DTensor.from_local(o, mesh, qp, run_check=False)
+    # back to q's layout: a local slice where q's sequence was sharded
+    return o.redistribute(mesh, tuple(Replicate() if p.is_partial() else p
+                                      for p in layout))
 
 
 # ---------------------------------------------------------------------------

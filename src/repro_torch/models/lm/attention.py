@@ -14,8 +14,35 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.models.lm.common import (Params, apply_rope,
+from repro_torch.models.lm.common import (Params, ambient_abstract_mesh,
+                                          apply_rope, shard_hint,
+                                          split_shardable,
                                           truncated_normal_init)
+
+
+def _qkv_hints(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Megatron-style activation sharding of ``[B, T, H, hd]``: heads
+    over ``model`` where they divide it; K/V with too few KV heads
+    replicate over ``model`` (:func:`shard_hint` drops the entry), so the
+    score contraction is never sharded.
+
+    When the query heads do not divide the model axis, the query
+    *sequence* goes over ``model`` instead (context parallelism), as in
+    the reference.  The identity without a mesh in scope and on plain
+    tensors."""
+    mesh = ambient_abstract_mesh()
+    if mesh is None:
+        return q, k, v
+    from repro_torch.distrib.sharding import axis_size
+    model = axis_size(mesh, "model")
+    if q.shape[2] % model == 0 and q.shape[2] >= model or q.shape[1] == 1:
+        q = shard_hint(q, ("pod", "data"), None, "model", None)
+    else:
+        q = shard_hint(q, ("pod", "data"), "model", None, None)
+    k = shard_hint(k, ("pod", "data"), None, "model", None)
+    v = shard_hint(v, ("pod", "data"), None, "model", None)
+    return q, k, v
 
 
 def init_attention(generator: torch.Generator, d_model: int, n_heads: int,
@@ -51,9 +78,11 @@ def _project_qkv(p: Params, x: torch.Tensor, kv_src: torch.Tensor,
     v = kv_src @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (q.reshape(B, T, n_heads, head_dim),
-            k.reshape(B, S, n_kv_heads, head_dim),
-            v.reshape(B, S, n_kv_heads, head_dim))
+    return (split_shardable(q, -1, n_heads).reshape(B, T, n_heads, head_dim),
+            split_shardable(k, -1, n_kv_heads).reshape(B, S, n_kv_heads,
+                                                       head_dim),
+            split_shardable(v, -1, n_kv_heads).reshape(B, S, n_kv_heads,
+                                                       head_dim))
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
@@ -73,7 +102,8 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     B, T, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
     rep = H // KV
-    qf = (q.float() / math.sqrt(hd)).reshape(B, T, KV, rep, hd)
+    qf = (split_shardable(q, 2, KV).float() / math.sqrt(hd)
+          ).reshape(B, T, KV, rep, hd)
     logits = torch.einsum("btkrh,bskh->bktrs", qf, k.float())
     qpos = torch.arange(T, device=q.device) + q_offset
     kpos = torch.arange(S, device=q.device)
@@ -94,9 +124,13 @@ def _mha_blocked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Query blocks one after another; each block takes a full softmax row
     against all of K/V (no online accumulation needed)."""
     T = q.shape[1]
-    return torch.cat([mha(q[:, i:i + block_q], k, v, causal=causal,
-                          window=window, q_offset=i)
-                      for i in range(0, T, block_q)], dim=1)
+    outs = []
+    for i in range(0, T, block_q):
+        # re-hinted per block, as the reference re-hints its scan body
+        qi, ki, vi = _qkv_hints(q[:, i:i + block_q], k, v)
+        outs.append(mha(qi, ki, vi, causal=causal, window=window,
+                        q_offset=i))
+    return torch.cat(outs, dim=1)
 
 
 def self_attention(p: Params, x: torch.Tensor, *, n_heads: int,
@@ -106,7 +140,8 @@ def self_attention(p: Params, x: torch.Tensor, *, n_heads: int,
                    use_flash: bool = False, block_q: int = 0
                    ) -> torch.Tensor:
     B, T, _ = x.shape
-    q, k, v = _project_qkv(p, x, x, n_heads, n_kv_heads, head_dim)
+    q, k, v = _qkv_hints(*_project_qkv(p, x, x, n_heads, n_kv_heads,
+                                       head_dim))
     if rope_theta > 0:
         pos = positions if positions is not None \
             else torch.arange(T, device=x.device)
@@ -125,7 +160,8 @@ def cross_attention(p: Params, x: torch.Tensor, enc_out: torch.Tensor, *,
                     block_q: int = 0) -> torch.Tensor:
     """Decoder queries over encoder keys: the plain ``mha``, non-causal."""
     B, T, _ = x.shape
-    q, k, v = _project_qkv(p, x, enc_out, n_heads, n_kv_heads, head_dim)
+    q, k, v = _qkv_hints(*_project_qkv(p, x, enc_out, n_heads, n_kv_heads,
+                                       head_dim))
     out = mha(q, k, v, causal=False, block_q=block_q)
     return out.reshape(B, T, n_heads * head_dim) @ p["wo"]
 

@@ -16,6 +16,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import is_dtensor
+
 Params = Dict[str, Any]
 
 
@@ -64,6 +66,22 @@ def shard_hint(x: torch.Tensor, *axes) -> torch.Tensor:
 
     spec = tuple(reduce(a, x.shape[i]) for i, a in enumerate(axes))
     return x.redistribute(mesh, placements(mesh, spec))
+
+
+def split_shardable(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """``x`` ready for a view that splits ``dim`` into ``n`` parts of its
+    size: a DTensor is first gathered on each mesh dim that shards ``dim``
+    over a number of ranks not dividing ``n`` (DTensor's view cannot
+    split such a dim; XLA's partitioner regathers there too).  A plain
+    tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    dim %= x.dim()
+    mesh = x.device_mesh
+    pl = tuple(Replicate() if p.is_shard(dim) and n % mesh.size(i) else p
+               for i, p in enumerate(x.placements))
+    return x if pl == x.placements else x.redistribute(mesh, pl)
 
 
 def truncated_normal_init(generator: torch.Generator, shape: Tuple[int, ...],
@@ -227,8 +245,13 @@ def chunked_softmax_xent(hidden: torch.Tensor, lm_head: torch.Tensor,
         yc = labels[:, c * cs:(c + 1) * cs].long()
         mc = mask[:, c * cs:(c + 1) * cs].float()
         logits = (hc @ lm_head).float()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, yc[..., None])[..., 0]
-        tot = tot + ((logz - gold) * mc).sum()
+        # keep the [B, chunk, V] chunk sharded: batch over DP, vocab TP
+        logits = shard_hint(logits, ("pod", "data"), None, "model")
+        # the trailing dim stays until the difference: over a vocab-sharded
+        # DTensor the gather's result is a masked pending sum, which DTensor
+        # can reduce only at the gather's own shape
+        logz = torch.logsumexp(logits, dim=-1, keepdim=True)
+        gold = torch.gather(logits, -1, yc[..., None])
+        tot = tot + ((logz - gold)[..., 0] * mc).sum()
         cnt = cnt + mc.sum()
     return tot / torch.clamp_min(cnt, 1.0)

@@ -62,7 +62,8 @@ from repro_torch.models.lm import xlstm as xlstm_mod
 from repro_torch.models.lm.common import truncated_normal_init
 from repro_torch.models.lm.model import (LMConfig, _apply_block,
                                          _apply_norm, _group_layout,
-                                         _init_block, _init_norm)
+                                         _init_block, _init_norm,
+                                         _resid_hint)
 
 Params = List[Any]
 
@@ -367,14 +368,17 @@ class LMLayerStack(LayerStack):
             elif spec.kind in ("attn", "moe"):
                 x = _apply_block(cfg, p, x, spec.window)
             elif spec.kind == "mamba2":
+                x = _resid_hint(cfg, x)
                 hn = _apply_norm(cfg, p["pre"], x)
                 x = x + ssm_mod.apply_mamba2(p["m"], hn, cfg.ssm,
                                              use_kernel=cfg.use_gla_kernel)
             elif spec.kind == "mlstm":
+                x = _resid_hint(cfg, x)
                 hn = _apply_norm(cfg, p["pre"], x)
                 x = x + xlstm_mod.apply_mlstm(p["m"], hn, cfg.xlstm,
                                               use_kernel=cfg.use_gla_kernel)
             else:
+                x = _resid_hint(cfg, x)
                 hn = _apply_norm(cfg, p["pre"], x)
                 x = x + xlstm_mod.apply_slstm(p["s"], hn, cfg.xlstm)
         return x

@@ -40,7 +40,7 @@ from repro_torch.models.lm.common import (Params, apply_geglu,
                                           apply_gelu_mlp, apply_rope,
                                           apply_swiglu, chunked_softmax_xent,
                                           init_gelu_mlp, init_swiglu,
-                                          layer_norm, rms_norm,
+                                          layer_norm, rms_norm, shard_hint,
                                           sinusoidal_position_at,
                                           sinusoidal_positions,
                                           truncated_normal_init)
@@ -95,6 +95,14 @@ class LMConfig:
 # ---------------------------------------------------------------------------
 # norm / mlp dispatch
 # ---------------------------------------------------------------------------
+
+def _resid_hint(cfg: LMConfig, x: torch.Tensor) -> torch.Tensor:
+    """Residual-stream sharding: batch over DP; with ``seq_parallel``
+    also T over ``model`` (Megatron-SP).  The identity without a mesh in
+    scope and on plain tensors (:func:`shard_hint`)."""
+    return shard_hint(x, ("pod", "data"),
+                      "model" if cfg.seq_parallel else None, None)
+
 
 def _init_norm(cfg: LMConfig, device=None) -> Params:
     if cfg.norm == "layer":
@@ -160,6 +168,7 @@ def _init_block(generator: torch.Generator, cfg: LMConfig, device=None
 def _apply_block(cfg: LMConfig, p: Params, x: torch.Tensor, window: int,
                  positions: Optional[torch.Tensor] = None,
                  causal: bool = True) -> torch.Tensor:
+    x = _resid_hint(cfg, x)
     h = _apply_norm(cfg, p["ln1"], x)
     h = attn.self_attention(
         p["attn"], h, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
@@ -188,9 +197,10 @@ def _prefill_block(cfg: LMConfig, p: Params, x: torch.Tensor, cache: Params,
     ``[:T]`` of ``cache`` (``{"k", "v"}``, ``[B, max_len, KV, hd]``) are
     written in place; the rows after them stay as they were (zeros)."""
     B, T, _ = x.shape
+    x = _resid_hint(cfg, x)
     h = _apply_norm(cfg, p["ln1"], x)
-    q, k, v = attn._project_qkv(p["attn"], h, h, cfg.n_heads,
-                                cfg.n_kv_heads, cfg.hd)
+    q, k, v = attn._qkv_hints(*attn._project_qkv(
+        p["attn"], h, h, cfg.n_heads, cfg.n_kv_heads, cfg.hd))
     if cfg.rope_theta > 0:
         pos = torch.arange(T, device=x.device)
         q = apply_rope(q, pos, cfg.rope_theta)
@@ -453,6 +463,7 @@ def _build_zamba(cfg: LMConfig) -> Model:
         x = _embed_tokens(params, batch["tokens"])
 
         def mamba(x, lp):
+            x = _resid_hint(cfg, x)
             h = _apply_norm(cfg, lp["pre"], x)
             return x + ssm_mod.apply_mamba2(lp["m"], h, cfg.ssm,
                                             use_kernel=cfg.use_gla_kernel)
@@ -567,11 +578,19 @@ def _build_xlstm(cfg: LMConfig) -> Model:
     def hidden_fn(params: Params, batch: Dict[str, torch.Tensor]
                   ) -> torch.Tensor:
         x = _embed_tokens(params, batch["tokens"])
-        m = _maybe_remat(cfg, lambda x, lp: x + xlstm_mod.apply_mlstm(
-            lp["m"], _apply_norm(cfg, lp["pre"], x), xc,
-            use_kernel=cfg.use_gla_kernel))
-        s = _maybe_remat(cfg, lambda x, lp: x + xlstm_mod.apply_slstm(
-            lp["s"], _apply_norm(cfg, lp["pre"], x), xc))
+
+        def m_body(x, lp):
+            x = _resid_hint(cfg, x)
+            return x + xlstm_mod.apply_mlstm(
+                lp["m"], _apply_norm(cfg, lp["pre"], x), xc,
+                use_kernel=cfg.use_gla_kernel)
+
+        def s_body(x, lp):
+            x = _resid_hint(cfg, x)
+            return x + xlstm_mod.apply_slstm(
+                lp["s"], _apply_norm(cfg, lp["pre"], x), xc)
+
+        m, s = _maybe_remat(cfg, m_body), _maybe_remat(cfg, s_body)
         for kind, i, _ in order():
             if kind == "m":
                 x = m(x, _index(params["mlstm"], i))
@@ -682,6 +701,7 @@ def _build_encdec(cfg: LMConfig) -> Model:
 
     def dec_block(p: Params, x: torch.Tensor, enc_out: torch.Tensor
                   ) -> torch.Tensor:
+        x = _resid_hint(cfg, x)
         h = _apply_norm(cfg, p["ln1"], x)
         x = x + attn.self_attention(
             p["attn"], h, causal=True, rope_theta=cfg.rope_theta,

@@ -26,7 +26,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import is_dtensor, resolve_device
 from repro_torch.distrib import compat
 from repro_torch.distrib.sharding import axis_names, axis_size
 from repro_torch.distrib.tiered_sync import (TierAssignment, group_mean,
@@ -49,14 +49,24 @@ def init_state(model, optimizer: Optimizer, generator: torch.Generator,
     return {"params": params, "opt": optimizer.init(params)}
 
 
+def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient redistributed to its parameter's placements: the
+    reduce-scatter (sharded leaves) or all-reduce (replicated leaves) of
+    a pending sum that XLA's partitioner emits.  A plain gradient as it
+    is."""
+    if not is_dtensor(g) or g.placements == p.placements:
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
+
+
 def _value_and_grad(loss_fn: Callable, params: Tree, batch: Tree
                     ) -> Tuple[torch.Tensor, Tree]:
     """``loss_fn(params, batch)`` and its gradient with respect to every
     leaf of ``params`` (zeros where a leaf is unused), in the leaves'
-    dtypes."""
+    dtypes and, for DTensors, placements."""
     leaves = grad_leaves(params)
     loss = loss_fn(leaves, batch)
-    return loss.detach(), grad(loss, leaves)
+    return loss.detach(), tree_map(_placed_like, grad(loss, leaves), params)
 
 
 def _microbatched_grads(loss_fn: Callable, params: Tree, batch: Tree,
@@ -72,7 +82,10 @@ def _microbatched_grads(loss_fn: Callable, params: Tree, batch: Tree,
                           *([None] * (x.dim() - 2)))
 
     mb = tree_map(resh, batch)
-    loss_acc, grad_acc = 0.0, tree_map(lambda p: 0.0, params)   # f32 sums
+    # f32 sums, made from the params so that they take their placements
+    loss_acc = 0.0
+    grad_acc = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                        params)
     for i in trip_range(microbatches):
         loss, grads = _value_and_grad(loss_fn, params,
                                       tree_map(lambda x: x[i], mb))
