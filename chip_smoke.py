@@ -1683,10 +1683,17 @@ FLAT_CKPT_EVERY, FLAT_FAIL_AT = 2, 3
 
 def flat_launches(cfg) -> dict:
     """Kernel launches of one ``make_train_step`` step on ``build_model``:
-    a forward's (``serve_launches``), twice with ``cfg.remat``, whose
-    blocks re-run their forward in the backward."""
+    a forward's, twice with ``cfg.remat``, whose blocks re-run their
+    forward in the backward.  A forward launches what a prefill does
+    (``serve_launches``), and in the ``encdec`` family also the flash
+    kernel once per decoder layer: its training forward runs the
+    decoder's self-attention through ``use_flash``, where the prefill
+    runs the plain attention."""
     k = 2 if cfg.remat else 1
-    return {name: n * k for name, n in serve_launches(cfg).items()}
+    fwd = serve_launches(cfg)
+    if cfg.family == "encdec":
+        fwd["flash_attention"] += cfg.n_layers
+    return {name: n * k for name, n in fwd.items()}
 
 
 @contextlib.contextmanager
@@ -2932,14 +2939,15 @@ BF16_LOSS_RTOL = 2.0 ** -8   # tests/test_torch_train_int8_lm.py
 PART_STEPS, PART_TIMED = 3, 2
 
 
-def drive(torch, kernels, step, state, batches, kept=None) -> dict:
+def drive(torch, kernels, step, state, batches, kept=None,
+          keep=lambda state: state) -> dict:
     """``PART_STEPS`` checked steps of ``step`` from ``state`` (each one's
     loss and launches; given ``kept``, each under ``CommDebugMode``, its
     collectives by type and ``kept(state)`` after it), then
     ``PART_TIMED`` timed steps; the peak over all of them, and above the
     bytes allocated before them (what the steps themselves add: the
-    caller may hold other states).  Returns the state after the checked
-    steps as ``state``."""
+    caller may hold other states).  Returns ``keep`` of the state after
+    the checked steps as ``state`` (``keep`` may copy it to the host)."""
     from torch.distributed.tensor.debug import CommDebugMode
     out = {"losses": [], "launches": [], "comms": [], "kept": [],
            "check_ms": [], "step_ms": []}
@@ -2969,7 +2977,7 @@ def drive(torch, kernels, step, state, batches, kept=None) -> dict:
                                  mode.get_comm_counts().items()})
             out["kept"].append(kept(state))
         if i == PART_STEPS - 1:
-            checked = state
+            checked = keep(state)
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
     out["added_bytes"] = out["peak_bytes"] - start
     out["state"] = checked
@@ -2977,7 +2985,7 @@ def drive(torch, kernels, step, state, batches, kept=None) -> dict:
 
 
 def run_partition(torch, kernels, tmp: Path, lm_model, optim, train,
-                  make_batch_fn, shape, cfg) -> dict:
+                  make_batch_fn, shape, cfg, configs) -> dict:
     """Phase 16 on a one-rank NCCL group (a ``FileStore`` under ``tmp``),
     destroyed at the end: phase 13's flat step (``make_train_step``,
     AdamW, B x T) through ``distrib.partition.partitioned_step`` on a
@@ -2987,7 +2995,9 @@ def run_partition(torch, kernels, tmp: Path, lm_model, optim, train,
     first leaf that differs printed and each loss held to one bf16
     rounding), flash launched as the layers imply every step, every
     leaf's placements kept, ``CommDebugMode``'s collectives per step by
-    type; step ms beside the flat step's and the peak."""
+    type; step ms beside the flat step's and the peak.  Then, on the same
+    group and mesh, each of ``PART_FAMILIES``
+    (:func:`run_partition_family`)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.distrib import partition, sharding
@@ -3069,9 +3079,142 @@ def run_partition(torch, kernels, tmp: Path, lm_model, optim, train,
                           for n in one})
         del want, state0
         torch.cuda.empty_cache()
+        for arch, cut in PART_FAMILIES:
+            out[arch] = run_partition_family(
+                torch, kernels, mesh, lm_model, optim, train, partition,
+                sharding, make_batch_fn, configs.get_arch(arch).lm.variant(
+                    use_flash=True, use_gla_kernel=True, **cut), cut)
+            torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
     return out
+
+
+# Phase 16's other families: each at its published widths, bf16, cut in
+# depth only: zamba2-7b to one group (6 Mamba2 layers and the shared
+# block), qwen2-moe-a2.7b to 2 of 24 layers (groups of 1,024 tokens, as
+# published), xlstm-350m to 8 of 24 (7 mLSTM blocks and 1 sLSTM),
+# whisper-base whole.  B x T = PART_B x PART_T, whisper's frames and
+# tokens both T long (make_lm_batch_fn).  fsdp=True only.
+PART_FAMILIES = (("zamba2-7b", {"n_layers": 6, "shared_attn_every": 6}),
+                 ("qwen2-moe-a2.7b", {"n_layers": 2}),
+                 ("xlstm-350m", {"n_layers": 8}),
+                 ("whisper-base", {}))
+PART_B, PART_T = 4, 512
+
+
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for _, t in leaves(tree))
+
+
+def on_host(torch, state) -> dict:
+    """Each leaf of a state (plain, or a DTensor's local shard) copied to
+    the host, by path: a state the card need not hold while the next
+    steps run."""
+    from repro_torch.device import is_dtensor
+    return {k: (x.to_local() if is_dtensor(x) else x).cpu()
+            for k, x in leaves(state)}
+
+
+def run_partition_family(torch, kernels, mesh, lm_model, optim, train,
+                         partition, sharding, make_batch_fn, cfg, cut
+                         ) -> dict:
+    """One family's flat step (``make_train_step``, AdamW, ``PART_B`` x
+    ``PART_T``) and the same step through ``partitioned_step`` at
+    ``fsdp=True`` on ``mesh``, each from the seeded state (drawn anew for
+    each run, so that the card holds one) under deterministic
+    algorithms: the losses and the state after the checked steps bitwise
+    equal (or the first leaf that differs printed and each loss held to
+    one bf16 rounding), flash and GLA launched ``flat_launches(cfg)``
+    times a step by both runs, every leaf's placements kept, the
+    collectives a step by type; the bytes reckoned before the runs
+    beside the measured peaks, step ms beside the flat step's, and the
+    seconds the whole took."""
+    from repro_torch.configs.base import ShapeSpec
+    t0 = time.perf_counter()
+    label = f"{cfg.name} {cut or 'whole'}"
+    model = lm_model.build_model(cfg)
+    opt = optim.AdamW(lr=HIER_LR)
+
+    def fresh():
+        return train.init_state(model, opt, torch.Generator(
+            device="cuda").manual_seed(SEED), "cuda")
+    shapes = train.init_state(model, opt, torch.Generator(), "meta")
+    batch_fn = make_batch_fn(cfg, ShapeSpec("part", PART_T, PART_B, "train"),
+                             seed=BATCH_SEED)
+    batches = [{k: torch.as_tensor(v, device="cuda")
+                for k, v in batch_fn(i).items()}
+               for i in range(PART_STEPS + PART_TIMED)]
+    shard = {"params": sharding.param_shardings(mesh, shapes["params"],
+                                                True),
+             "opt": sharding.opt_state_shardings(mesh, shapes["opt"], True)}
+    placed = dict(leaves(shard))
+    # distribute_tensor copies a leaf it shards, even over a one-rank dim
+    reckon = {"params": tree_bytes(shapes["params"]),
+              "opt": tree_bytes(shapes["opt"]),
+              "laid_out_copy": sum(
+                  x.numel() * x.element_size() for k, x in leaves(shapes)
+                  if any(p.is_shard() for p in placed[k]))}
+    reckon["state"] = reckon["params"] + reckon["opt"]
+    print(f"  {label}: bytes reckoned {reckon} (a state "
+          f"{reckon['state'] / 2 ** 30:.3f} GiB; the card holds the "
+          f"running state, its update and, while the partitioned run is "
+          f"laid out, the copy; the checked states go to the host)")
+    per_step = flat_launches(cfg)
+    step = train.make_train_step(model, opt)
+    with deterministic(torch):
+        flat = drive(torch, kernels, step, fresh(), batches,
+                     keep=lambda st: on_host(torch, st))
+    want = flat.pop("state")
+    flat["losses"] = [float(x) for x in flat["losses"]]
+    torch.cuda.empty_cache()
+    pstep = partition.partitioned_step(
+        step, mesh, shard, sharding.batch_shardings(mesh, batches[0]))
+
+    def kept(state):
+        return all(tuple(placed[k]) == x.placements
+                   for k, x in leaves(state))
+    with deterministic(torch):
+        run = drive(torch, kernels, pstep, partition.distribute_tree(
+            fresh(), mesh, shard), batches, kept=kept,
+            keep=lambda st: on_host(torch, st))
+    got = run.pop("state")
+    differs = [k for k in want if not torch.equal(got[k], want[k])]
+    del got, want
+    losses = [float(x) for x in run["losses"]]
+    bitwise = not differs and losses == flat["losses"]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses, flat["losses"]))
+    why = "" if bitwise else \
+        f" (first leaf differing {differs[:1]}, loss rel {worst!r})"
+    seconds = time.perf_counter() - t0
+    print(f"  {label} flat: losses {flat['losses']}; step ms "
+          f"{flat['step_ms']}; peak {flat['peak_bytes'] / 2 ** 30:.3f} GiB; "
+          f"launches {flat['launches']} (expected {per_step} a step)")
+    print(f"  {label} partitioned fsdp=True: losses {losses}; bitwise the "
+          f"flat step: {bitwise}{why}; placements kept {run['kept']}; "
+          f"launches {run['launches']}; collectives a step {run['comms']}; "
+          f"step ms {run['step_ms']} (checked steps, under CommDebugMode, "
+          f"{run['check_ms']}); peak {run['peak_bytes'] / 2 ** 30:.3f} GiB "
+          f"({run['added_bytes'] / 2 ** 30:.3f} above the start); "
+          f"{seconds:.1f} s")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"{label}: non-finite loss {losses}")
+    if not bitwise and worst > BF16_LOSS_RTOL:
+        fail(f"{label}: loss {worst!r} from the flat step's, past one bf16 "
+             f"rounding")
+    if not all(run["kept"]):
+        fail(f"{label}: a leaf's placements changed")
+    for name, r in (("flat", flat), ("partitioned", run)):
+        if r["launches"] != [per_step] * PART_STEPS:
+            fail(f"{label} {name}: launches {r['launches']}, expected "
+                 f"{per_step} a step")
+    return dict(run, losses=losses, bitwise=bitwise, differs=differs[:8],
+                differing_params=[k for k in differs
+                                  if k.startswith("params.")][:8],
+                loss_rel=worst, launches_per_step=per_step,
+                launches={n: sum(c[n] for c in run["launches"])
+                          for n in per_step},
+                flat=flat, reckon=reckon, seconds=seconds, reduced=cut)
 
 
 def steady(ms):
@@ -3308,18 +3451,21 @@ def main() -> int:
           "at run time")
     analysis = run_analysis(torch, kernels, ref, root, sass)
 
-    # 16. the dense train step partitioned over DTensor (one NCCL rank)
+    # 16. the train step of every family partitioned over DTensor (one
+    # NCCL rank)
     print(f"main path: {HIER_ARCH} {HIER_REDUCED} flat step through "
           f"distrib.partition.partitioned_step on a (data, model) = (1, 1) "
           f"mesh, fsdp False and True, {PART_STEPS} checked and "
-          f"{PART_TIMED} timed steps each")
+          f"{PART_TIMED} timed steps each; then {PART_FAMILIES} at their "
+          f"published widths, B={PART_B}, T={PART_T}, fsdp True")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         part = run_partition(torch, kernels, Path(tmp), lm_model=lm_model,
                              optim=optim, train=train,
                              make_batch_fn=make_lm_batch_fn,
                              shape=ShapeSpec("hier", HIER_T, HIER_B,
-                                             "train"), cfg=hcfg)
+                                             "train"), cfg=hcfg,
+                             configs=configs)
     print(f"  phase 16 took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
@@ -3339,7 +3485,8 @@ def main() -> int:
                  "alexnet_cloud_tree_E2": distrib["cloud"],
                  "dryrun_flat_step": vs_card,
                  **{f"partition_{k}": part[k]
-                    for k in ("fsdp_False", "fsdp_True")}}
+                    for k in ("fsdp_False", "fsdp_True")},
+                 **{f"partition_{a}": part[a] for a, _ in PART_FAMILIES}}
     paths = {k: r["launches"] for k, r in path_runs.items()}
     held = set(alexnet_rows)
     seen = {k: r["wire_rows"] for k, r in path_runs.items()

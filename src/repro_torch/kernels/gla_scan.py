@@ -29,6 +29,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.device import is_dtensor
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ref_gla
 
@@ -56,6 +57,11 @@ def gla_scan_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     log_decay f32 ``[BH, T]``; all contiguous, on one device.  Returns
     ``(y [BH, T, dv] in v's dtype, S f32 [BH, dk, dv], n f32 [BH, dk])``."""
     global launches
+    if any(is_dtensor(t) for t in (q, k, v, log_decay)):
+        raise TypeError("gla_scan_fwd takes each rank's local tensors, not "
+                        "a DTensor (a wrapper with no storage of its own): "
+                        "repro_torch.kernels.ops.gla_scan runs it on the "
+                        "local shards")
     if q.dim() != 3 or k.shape != q.shape or v.dim() != 3 or \
             v.shape[:2] != q.shape[:2] or \
             tuple(log_decay.shape) != tuple(q.shape[:2]):

@@ -3,10 +3,11 @@
 * :func:`flash_attention` — GQA flash attention over ``[B, T, H, hd]``,
   a ``torch.autograd.Function`` whose backward is the chunked pass over K
   blocks that consumes the kernel's log-sum-exp.  On DTensors it runs on
-  each rank's local shard (:func:`_flash_on_shards`).
+  each rank's local shard (:func:`attention_on_shards`).
 * :func:`gla_scan` — the chunked gated linear recurrence over
   ``[B, T, H, d]``; its backward is the gradient of the plain
-  ``chunked_gla``.
+  ``chunked_gla``.  On DTensors it runs on each rank's local shard
+  (:func:`_gla_on_shards`).
 * :func:`wire_qdq_int8` — the deterministic cut-point wire round trip
   (per-sample rows, round to nearest).
 * :func:`quantize_int8` / :func:`dequantize_int8` — unbiased int8
@@ -97,9 +98,11 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """Model layout: q [B, T, H, hd]; k/v [B, S, KV, hd] -> [B, T, H, hd].
-    DTensors go through :func:`_flash_on_shards`."""
+    DTensors go through :func:`attention_on_shards`."""
     if is_dtensor(q):
-        return _flash_on_shards(q, k, v, bool(causal), int(window))
+        causal, window = bool(causal), int(window)
+        return attention_on_shards(q, k, v, lambda a, b, c: flash_attention(
+            a, b, c, causal=causal, window=window))
     B, T, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
     qh = q.transpose(1, 2).contiguous().reshape(B * H, T, hd)
@@ -123,9 +126,10 @@ def _kv_group(k: torch.Tensor, h0: int, heads: int, rep: int
     return k[:, :, idx]
 
 
-def _flash_on_shards(q, k, v, causal: bool, window: int) -> torch.Tensor:
-    """Flash attention of DTensors, the kernel run on each rank's local
-    shard of the model layout.
+def attention_on_shards(q, k, v, attend) -> torch.Tensor:
+    """Attention of DTensors, ``attend(q, k, v)`` (the flash kernel, or
+    the plain ``mha``) run on each rank's local shard of the model
+    layout.
 
     q goes to batch over the DP axes and heads over ``model``; k and v to
     the same batch split and KV heads over ``model`` where they divide
@@ -141,15 +145,14 @@ def _flash_on_shards(q, k, v, causal: bool, window: int) -> torch.Tensor:
     undone."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
     from repro_torch.distrib.sharding import (axis_names, axis_size,
-                                              batch_spec, placements)
+                                              placements)
+    from repro_torch.models.lm.common import head_split
     mesh = q.device_mesh
     B, T, H, hd = q.shape
     KV = k.shape[2]
     model = axis_size(mesh, "model")
-    by_heads = "model" in axis_names(mesh) and H % model == 0 and \
-        H >= model
+    dp, by_heads = head_split(mesh, B, H)
     kv_heads = by_heads and KV % model == 0 and KV >= model
-    dp = batch_spec(mesh, B, 1)[0]
     qp = placements(mesh, (dp, None, "model" if by_heads else None, None))
     kp = placements(mesh, (dp, None, "model" if kv_heads else None, None))
     layout = q.placements
@@ -166,8 +169,7 @@ def _flash_on_shards(q, k, v, causal: bool, window: int) -> torch.Tensor:
         kl, vl = (_kv_group(t, h0, Hl, H // KV) for t in (kl, vl))
     else:
         kl, vl = (t.redistribute(mesh, kp).to_local() for t in (k, v))
-    o = flash_attention(ql, kl, vl, causal=causal, window=window)
-    o = DTensor.from_local(o, mesh, qp, run_check=False)
+    o = DTensor.from_local(attend(ql, kl, vl), mesh, qp, run_check=False)
     # back to q's layout: a local slice where q's sequence was sharded
     return o.redistribute(mesh, tuple(Replicate() if p.is_partial() else p
                                       for p in layout))
@@ -228,6 +230,8 @@ def gla_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if initial_state is not None:
         return chunked_gla(q, k, v, log_decay, chunk=chunk,
                            normalize=normalize, initial_state=initial_state)
+    if is_dtensor(q):
+        return _gla_on_shards(q, k, v, log_decay, chunk, bool(normalize))
     B, T, H, dk = q.shape
     dv = v.shape[-1]
     qh = q.transpose(1, 2).contiguous().reshape(B * H, T, dk)
@@ -237,6 +241,32 @@ def gla_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     y, S, n = _GlaScan.apply(qh, kh, vh, ah, min(chunk, T), bool(normalize))
     return (y.reshape(B, H, T, dv).transpose(1, 2),
             (S.reshape(B, H, dk, dv), n.reshape(B, H, dk)))
+
+
+def _gla_on_shards(q, k, v, log_decay, chunk: int, normalize: bool):
+    """The GLA scan of DTensors, the kernel run on each rank's local
+    shard of the model layout.
+
+    Every input goes to batch over the DP axes and heads over ``model``
+    where they divide it (:func:`repro_torch.models.lm.common.head_split`),
+    else heads replicated, every rank computing all heads of its batch
+    block.  Heads the model already shards stay put: no collective.
+    Inputs replicated over ``model`` -- Mamba2's q and k, computed once
+    for all heads -- are sliced to the rank's heads, their gradient a
+    pending sum over ``model``
+    (:func:`repro_torch.models.lm.common.local_heads`).  y, S and n come
+    back as DTensors of that layout; the backward's recomputed
+    ``chunked_gla`` runs on the local shards too."""
+    from repro_torch.models.lm.common import (from_heads, head_split,
+                                              local_heads)
+    mesh = q.device_mesh
+    dp, by_heads = head_split(mesh, q.shape[0], q.shape[2])
+    ql, kl, vl, al = (local_heads(t, 2, by_heads, dp)
+                      for t in (q, k, v, log_decay))
+    y, (S, n) = gla_scan(ql, kl, vl, al, chunk=chunk, normalize=normalize)
+    return (from_heads(y, mesh, 2, by_heads, dp),
+            (from_heads(S, mesh, 1, by_heads, dp),
+             from_heads(n, mesh, 1, by_heads, dp)))
 
 
 # ---------------------------------------------------------------------------

@@ -26,14 +26,16 @@ rank 0 of 256 or 512).  For each cell it records:
 * ``roofline``: :class:`Roofline` with the H100's peak, HBM and NVLink
   rates.
 
-What is traced is the program the port runs: one data-parallel rank,
-holding whole weights, on its block of the batch (``global_batch`` over
-the ``pod`` x ``data`` ranks that the batch sharding splits it over).
-Tensor and FSDP parallelism are placed (the sharding rules give
-``sharded_state_gb``) but not executed: the port has no partitioned
-step yet, where the reference's ``jit(in_shardings=...)`` partitions
-its own.  So the roofline's ``chips`` are the data-parallel ranks, not
-the mesh's devices.  A train cell's microbatch loop is traced through
+What is traced is one data-parallel rank, holding whole weights, on its
+block of the batch (``global_batch`` over the ``pod`` x ``data`` ranks
+that the batch sharding splits it over).  Tensor and FSDP parallelism
+are placed (the sharding rules give ``sharded_state_gb``) but not
+traced: the port executes them in
+:func:`repro_torch.distrib.partition.partitioned_step`, the counterpart
+of the reference's ``jit(in_shardings=...)``, but this dry run does not
+trace that program yet.  So the roofline's ``chips`` are the
+data-parallel ranks, not the mesh's devices.  A train cell's microbatch
+loop is traced through
 :func:`repro_torch.launch.hlo_analysis.trip_range` (first microbatch
 once, the second for the other ``k - 1``), which is exact: the
 microbatches have one shape.  The three CUDA kernels are opaque to the

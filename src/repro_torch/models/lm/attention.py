@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.device import is_dtensor
 from repro_torch.models.lm.common import (Params, ambient_abstract_mesh,
                                           apply_rope, shard_hint,
                                           split_shardable,
@@ -95,10 +96,16 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     q[.,0] minus that of k[.,0].  ``block_q > 0`` switches to the blocked
     evaluation when it divides a longer T, so the scores never hold more
     than ``block_q`` query rows.  Grouped einsum: no materialized
-    head-repeat of K/V."""
+    head-repeat of K/V.  DTensors take the flash kernel's layout
+    (:func:`repro_torch.kernels.ops.attention_on_shards`), the plain
+    attention run on each rank's local heads."""
     if block_q and q.shape[1] > block_q and q.shape[1] % block_q == 0:
         return _mha_blocked(q, k, v, causal=causal, window=window,
                             block_q=block_q)
+    if is_dtensor(q):
+        from repro_torch.kernels import ops as kops
+        return kops.attention_on_shards(q, k, v, lambda a, b, c: mha(
+            a, b, c, causal=causal, window=window, q_offset=q_offset))
     B, T, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
     rep = H // KV

@@ -84,6 +84,120 @@ def split_shardable(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
     return x if pl == x.placements else x.redistribute(mesh, pl)
 
 
+def pointwise_on_shards(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` for an elementwise ``fn`` that DTensor has no sharding
+    strategy for (``logsigmoid``'s backward): a DTensor's pending sums are
+    reduced, then each rank applies ``fn`` to its local shard, and the
+    result keeps ``x``'s layout.  A plain tensor as ``fn(x)``."""
+    if not is_dtensor(x):
+        return fn(x)
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = x.device_mesh
+    pl = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+    x = x.redistribute(mesh, pl)
+    return DTensor.from_local(fn(x.to_local()), mesh, pl, run_check=False,
+                              shape=x.shape, stride=x.stride())
+
+
+class _GradLayout(torch.autograd.Function):
+    """The identity; the gradient redistributed to the forward's
+    placements."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh, ctx.placements = x.device_mesh, x.placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(ctx.mesh, ctx.placements)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """``x [B, T, H, d]`` as ``[B, T, H d]``.  For a DTensor the merged
+    dim's gradient is first laid out as the forward's: DTensor cannot
+    split a dim sharded over ranks that do not divide ``H`` in the view's
+    backward (heads replicated over ``model`` meet a gradient that the
+    next product shards over ``model``)."""
+    B, T = x.shape[:2]
+    x = x.reshape(B, T, -1)
+    return _GradLayout.apply(x) if is_dtensor(x) else x
+
+
+def head_split(mesh, batch: int, heads: int) -> Tuple[Any, bool]:
+    """The layout of an operation run per head on each rank's local
+    shard: (the batch dim's spec entry, whether the heads go over
+    ``model``).  The batch goes over the DP axes where it divides them
+    (:func:`repro_torch.distrib.sharding.batch_spec`), the heads over
+    ``model`` where they divide it; otherwise they are replicated and
+    every rank computes all heads of its batch block."""
+    from repro_torch.distrib.sharding import (axis_names, axis_size,
+                                              batch_spec)
+    model = axis_size(mesh, "model")
+    by_heads = "model" in axis_names(mesh) and heads % model == 0 and \
+        heads >= model
+    return batch_spec(mesh, batch, 1)[0], by_heads
+
+
+def local_heads(x: torch.Tensor, dim: int, by_heads: bool, dp=None,
+                shared: bool = False) -> torch.Tensor:
+    """This rank's block of the DTensor ``x`` as a plain tensor through
+    which the gradient flows back to ``x``: dim 0 over the DP axes that
+    ``dp`` names, the heads at ``dim`` over ``model`` when ``by_heads``,
+    every other dim whole.  ``shared``: ``x`` has no batch dim (a weight)
+    and stays whole over the DP axes; every rank's batch block reads all
+    of it, so its gradient is a pending sum over the axes ``dp`` names.
+
+    Heads that ``x`` already shards over ``model`` stay where they are:
+    on the layout the model gives, nothing moves.  Heads that ``x``
+    replicates over ``model`` (Mamba2's q, an ``expand`` over heads; the
+    sLSTM's regrouped gates and recurrent weights) are sliced locally,
+    and the slice's gradient is declared a pending sum over ``model``:
+    each rank's share, zeros outside its heads, summed where ``x``'s
+    gradient is laid out.  So the forward takes no collective there."""
+    from torch.distributed.tensor import Partial, Shard
+    from repro_torch.distrib.sharding import axis_names, placements
+    mesh = x.device_mesh
+    names = axis_names(mesh)
+    dim %= x.dim()
+    spec = [None] * x.dim()
+    if not shared:
+        spec[0] = dp
+    m = names.index("model") if by_heads else None
+    kept = by_heads and x.placements[m] == Shard(dim)
+    if kept:
+        spec[dim] = "model"
+    pl = placements(mesh, tuple(spec))
+    x = x.redistribute(mesh, pl)
+    grad = list(pl)
+    if shared:
+        for a in (dp if isinstance(dp, tuple) else (dp,)):
+            if a is not None:
+                grad[names.index(a)] = Partial()
+    if by_heads and not kept:
+        grad[m] = Partial()
+    local = x.to_local(grad_placements=grad)
+    if not by_heads or kept:
+        return local
+    n = x.shape[dim] // mesh.size(m)
+    return local.narrow(dim, mesh.get_local_rank(m) * n, n)
+
+
+def from_heads(local: torch.Tensor, mesh, dim: int, by_heads: bool,
+               dp=None) -> torch.Tensor:
+    """The inverse of :func:`local_heads`: each rank's ``local`` block as
+    one DTensor, dim 0 over the DP axes that ``dp`` names and ``dim``
+    over ``model`` when ``by_heads``."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distrib.sharding import placements
+    spec = [None] * local.dim()
+    spec[0] = dp
+    if by_heads:
+        spec[dim % local.dim()] = "model"
+    return DTensor.from_local(local, mesh, placements(mesh, tuple(spec)),
+                              run_check=False)
+
+
 def truncated_normal_init(generator: torch.Generator, shape: Tuple[int, ...],
                           scale: float, dtype: torch.dtype,
                           device=None) -> torch.Tensor:

@@ -82,7 +82,18 @@ def _mamba2_forward(p: Params, x: torch.Tensor, cfg: SSMConfig,
                     conv_prev: Optional[torch.Tensor] = None,
                     use_kernel: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Shared fwd path.  Returns (y, new_conv_state, final_S)."""
+    """Shared fwd path.  Returns (y, new_conv_state, final_S).
+
+    On DTensors the code is the same.  ``in_proj``'s output is sharded
+    over ``model`` on its last dim (a column-parallel weight); the slices
+    of z, xBC and dt out of it let DTensor gather it over ``model`` first
+    (the reference's partitioner regathers there too; reordering the
+    slices onto the weight would gather the weight instead).  The conv's
+    ``cat`` and shifted slices along T gather a sequence-parallel T the
+    same way.  q and k are computed once for all heads and ``expand``-ed,
+    replicated over ``model``; the GLA kernel's route
+    (:func:`repro_torch.kernels.ops.gla_scan`) slices each rank's heads
+    out of them, their gradient a pending sum over ``model``."""
     B, T, D = x.shape
     di = d_inner(D, cfg)
     nh = di // cfg.head_dim

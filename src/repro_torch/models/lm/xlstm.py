@@ -6,8 +6,9 @@ simplifications (DESIGN.md): the mLSTM input gate is clamped to [-8, 8]
 instead of carrying the running max-stabilizer (the GLA normalizer
 bounds the output); the sLSTM keeps the standard log-space stabilizer.
 The mLSTM runs ``chunked_gla`` with ``normalize=True`` (the CUDA GLA
-kernel under ``use_kernel``) and ``gla_decode_step``; the sLSTM is a
-loop over time steps where the reference scans.
+kernel under ``use_kernel``, on each rank's local shard for DTensors)
+and ``gla_decode_step``; the sLSTM is a loop over time steps where the
+reference scans, on plain local tensors for DTensors.
 """
 from __future__ import annotations
 
@@ -17,7 +18,11 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.lm.common import (Params, rms_norm,
+from repro_torch.device import is_dtensor
+from repro_torch.models.lm.common import (Params, from_heads, head_split,
+                                          local_heads, merge_heads,
+                                          pointwise_on_shards, rms_norm,
+                                          split_shardable,
                                           truncated_normal_init)
 from repro_torch.models.lm.gla import chunked_gla, gla_decode_step
 from repro_torch.models.lm.ssm import _causal_conv
@@ -72,24 +77,23 @@ def _mlstm_qkv_gates(p: Params, x: torch.Tensor, cfg: XLSTMConfig,
     cx, new_conv = _causal_conv(xin, p["conv_w"], p["conv_b"],
                                 prev=conv_state)
     cx = F.silu(cx.float()).to(x.dtype)
-    q = (cx @ p["wq"]).reshape(B, T, H, hd)
+    q = split_shardable(cx @ p["wq"], -1, H).reshape(B, T, H, hd)
     # k / sqrt(hd) in the model dtype, by a divisor on the device (CUDA
     # turns a division by a host scalar into a multiply by its reciprocal)
     root = torch.sqrt(torch.full((), hd, dtype=torch.float32,
                                  device=x.device)).to(x.dtype)
-    k = (cx @ p["wk"]).reshape(B, T, H, hd) / root
-    v = (xin @ p["wv"]).reshape(B, T, H, hd)
+    k = split_shardable(cx @ p["wk"], -1, H).reshape(B, T, H, hd) / root
+    v = split_shardable(xin @ p["wv"], -1, H).reshape(B, T, H, hd)
     gates = xin.float() @ p["w_gates"]                     # [B, T, 2H]
     ig = torch.clamp(gates[..., :H] + p["b_igate"], -8.0, 8.0)
     fg = gates[..., H:] + p["b_fgate"]
-    log_decay = F.logsigmoid(fg)
+    log_decay = pointwise_on_shards(F.logsigmoid, fg)
     k = k * torch.exp(ig).to(k.dtype)[..., None]
     return q, k, v, log_decay, z, new_conv
 
 
 def _mlstm_out(p: Params, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    B, T = y.shape[:2]
-    y = rms_norm(y.reshape(B, T, -1), p["norm_w"])
+    y = rms_norm(merge_heads(y), p["norm_w"])
     y = y * F.silu(z.float()).to(y.dtype)
     return y @ p["down_proj"]
 
@@ -173,34 +177,73 @@ def _slstm_gates(p: Params, x: torch.Tensor, nh: int) -> torch.Tensor:
     """Input gates [B, T, nh, 4 hd] in f32, regrouped per head."""
     B, T, D = x.shape
     hd = D // nh
-    gx = x.float() @ p["w_in"] + p["b"]                    # [B, T, 4D]
+    gx = split_shardable(x.float() @ p["w_in"] + p["b"], -1, 4)  # [B,T,4D]
     return gx.reshape(B, T, 4, nh, hd).permute(0, 1, 3, 2, 4).reshape(
         B, T, nh, 4 * hd)
 
 
 def _slstm_out(p: Params, hs: torch.Tensor, dtype: torch.dtype
                ) -> torch.Tensor:
-    B, T = hs.shape[:2]
-    y = rms_norm(hs.reshape(B, T, -1).to(dtype), p["norm_w"])
+    y = rms_norm(merge_heads(hs).to(dtype), p["norm_w"])
     return y @ p["out_proj"]
 
 
-def _slstm_forward(p: Params, x: torch.Tensor, cfg: XLSTMConfig,
-                   carry: Optional[Tuple] = None):
-    """Strictly sequential over T.  Returns (y, final_carry)."""
-    B, _, D = x.shape
-    nh = cfg.n_heads
-    gx = _slstm_gates(p, x, nh)
-    if carry is None:
-        zeros = x.new_zeros((B, nh, D // nh), dtype=torch.float32)
-        carry = (zeros, zeros, zeros, zeros)
+def _slstm_loop(gx: torch.Tensor, r: torch.Tensor, carry: Tuple
+                ) -> Tuple[torch.Tensor, Tuple]:
+    """The step loop over gates ``[B, T, nh, 4 hd]``: the stacked ``h``
+    ``[B, T, nh, hd]`` and the final carry."""
     hs = []
     # unbind, not gx[:, t]: under autograd each indexed step's backward
     # writes a zero tensor of gx's full size, T of them a sequence
     for gxt in gx.unbind(1):
-        carry, h = _slstm_cell(carry, gxt, p["r"])
+        carry, h = _slstm_cell(carry, gxt, r)
         hs.append(h)
-    return _slstm_out(p, torch.stack(hs, dim=1), x.dtype), carry
+    return torch.stack(hs, dim=1), carry
+
+
+def _slstm_on_shards(p: Params, gx: torch.Tensor, carry: Optional[Tuple]
+                     ) -> Tuple[torch.Tensor, Tuple]:
+    """:func:`_slstm_loop` of DTensor gates on each rank's local shard:
+    one ``to_local`` / ``from_local`` a block, where the loop on DTensors
+    would dispatch each step's dozen operations through DTensor.  The
+    gates go to batch over the DP axes and heads over ``model`` where
+    they divide it, else heads replicated; ``r`` ``[nh, hd, 4 hd]``,
+    whose rule shards its last dim over ``model``, to the same head
+    split, whole over the DP axes (its gradient a pending sum there).
+    Heads replicated before the split are sliced locally, their
+    gradient a pending sum over ``model``
+    (:func:`repro_torch.models.lm.common.local_heads`)."""
+    mesh = gx.device_mesh
+    B, _, nh, hd4 = gx.shape
+    dp, by_heads = head_split(mesh, B, nh)
+    gl = local_heads(gx, 2, by_heads, dp)
+    r = local_heads(p["r"], 0, by_heads, dp, shared=True)
+    if carry is None:
+        zeros = gl.new_zeros((gl.shape[0], gl.shape[2], hd4 // 4))
+        carry = (zeros, zeros, zeros, zeros)
+    else:
+        carry = tuple(local_heads(c, 1, by_heads, dp) for c in carry)
+    hs, carry = _slstm_loop(gl, r, carry)
+    return (from_heads(hs, mesh, 2, by_heads, dp),
+            tuple(from_heads(c, mesh, 1, by_heads, dp) for c in carry))
+
+
+def _slstm_forward(p: Params, x: torch.Tensor, cfg: XLSTMConfig,
+                   carry: Optional[Tuple] = None):
+    """Strictly sequential over T.  Returns (y, final_carry).  DTensor
+    gates take the loop on each rank's local shard
+    (:func:`_slstm_on_shards`)."""
+    B, _, D = x.shape
+    nh = cfg.n_heads
+    gx = _slstm_gates(p, x, nh)
+    if is_dtensor(gx):
+        hs, carry = _slstm_on_shards(p, gx, carry)
+        return _slstm_out(p, hs, x.dtype), carry
+    if carry is None:
+        zeros = x.new_zeros((B, nh, D // nh), dtype=torch.float32)
+        carry = (zeros, zeros, zeros, zeros)
+    hs, carry = _slstm_loop(gx, p["r"], carry)
+    return _slstm_out(p, hs, x.dtype), carry
 
 
 def apply_slstm(p: Params, x: torch.Tensor, cfg: XLSTMConfig

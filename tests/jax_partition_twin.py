@@ -7,9 +7,12 @@ Reads the pickled numpy INPUTS that the port's ranks read and pickles to
 OUT, for each case named (all by default): the losses and final params
 of ``jax.jit(make_train_step(...), in_shardings=(state, batch, key),
 out_shardings=(state, None))`` over 2 steps, the reference's own
-partitioned step (src/repro/launch/dryrun.py:144-147); and the
-spec each of the reference's hints (``_qkv_hints``, ``_resid_hint``, the
-logits chunk's ``shard_hint``) names on each mesh.
+partitioned step (src/repro/launch/dryrun.py:144-147), with the
+smoke configs' plain ``chunked_gla`` (``use_gla_kernel=False``: the
+reference's own tests hold it to the interpret-mode Pallas kernel, which
+under ``jit(in_shardings)`` would make this process the slowest part of
+the test); and the spec each of the reference's hints (``_qkv_hints``,
+``_resid_hint``, the logits chunk's ``shard_hint``) names on each mesh.
 """
 from __future__ import annotations
 
@@ -52,7 +55,7 @@ def make_mesh(shape) -> Mesh:
 def run_case(case: dict, data: dict) -> dict:
     mesh = make_mesh(tuple(case["mesh"]))
     model = build_model(case_config(case))
-    opt = get_optimizer("adamw", **data["opt_kw"])
+    opt = get_optimizer(case["opt"], **case["opt_kw"])
     params = jax.tree.map(jnp.asarray, data["params"][case["model"]])
     state = {"params": params, "opt": opt.init(params)}
     shard = {"params": param_shardings(mesh, params, fsdp=case["fsdp"]),

@@ -516,3 +516,46 @@ def test_run_cloud_rehearsed(cpu_card, one_rank, monkeypatch):
     assert run["bitwise"] and "divisible" in run["guard"]
     assert run["launches"]["int8_quant"] > 0
     assert [len(v) for v in run["step_ms"].values()] == [1, 1]
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "qwen2-moe-a2.7b",
+                                  "xlstm-350m", "whisper-base"])
+def test_run_partition_family_rehearsed(arch, deterministic_imported,
+                                        cpu_card, one_rank, monkeypatch):
+    """Phase 16's ``run_partition_family`` on a one-rank gloo group and a
+    ``(1, 1)`` ``(data, model)`` mesh, on each family's smoke twin in
+    bf16 with both kernel routes (B=2 x 32): the flat and partitioned
+    runs launch flash and the GLA ``flat_launches`` times a step,
+    placements are kept, no collective runs, and the losses and params
+    are bitwise the flat run's.  The card holds the AdamW moments
+    bitwise too; on the CPU the xlstm twin's ``b_fgate`` moments came out
+    a rounding apart, so they are not held here."""
+    import chip_smoke
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import optim, train
+    from repro_torch.data.pipeline import make_lm_batch_fn
+    from repro_torch.distrib import partition
+    from repro_torch.models.lm import model as lm_model
+    assert arch in dict(chip_smoke.PART_FAMILIES)
+    monkeypatch.setattr(chip_smoke, "PART_B", 2)
+    monkeypatch.setattr(chip_smoke, "PART_T", 32)
+    as_tensor = torch.as_tensor
+    monkeypatch.setattr(torch, "as_tensor", lambda v, device=None, **kw:
+                        as_tensor(v, **kw))
+    mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+    cfg = configs.get_arch(arch).smoke.variant(
+        dtype=torch.bfloat16, use_flash=True, use_gla_kernel=True)
+    run = chip_smoke.run_partition_family(
+        torch, KERNELS, mesh, lm_model, optim, train, partition, sh,
+        make_lm_batch_fn, cfg, {})
+    per_step = chip_smoke.flat_launches(cfg)
+    assert run["launches_per_step"] == per_step
+    assert run["launches"] == {k: chip_smoke.PART_STEPS * v
+                               for k, v in per_step.items()}
+    assert run["flat"]["launches"] == [per_step] * chip_smoke.PART_STEPS
+    assert run["kept"] == [True] * chip_smoke.PART_STEPS
+    assert run["comms"] == [{}] * chip_smoke.PART_STEPS
+    assert run["losses"] == run["flat"]["losses"]
+    assert run["differing_params"] == []
+    assert run["bitwise"] or arch == "xlstm-350m"
+    assert len(run["step_ms"]) == chip_smoke.PART_TIMED
