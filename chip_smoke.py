@@ -118,12 +118,15 @@ Phases (every one that fails exits non-zero; there is no CPU path):
     test's tolerances), its divisibility guard, and both steps' ms.
 14. launch/, after phase 13's group is destroyed: (a) the dry run
     (``python -m repro_torch.launch.dryrun``, one CPU process per
-    ``DRYRUN_CELLS`` entry, all started together: the meta device and the
-    fake backend, no card) on the production meshes: qwen2.5-3b
-    ``train_4k`` on both meshes and with ``--hier`` on the multi-pod one,
-    grok-1-314b ``decode_32k``, zamba2-7b ``long_500k`` and
-    qwen2-moe-a2.7b ``train_4k``; every record ``OK`` with finite,
-    positive roofline terms, one line a cell.  (b) Phase 13's flat step
+    ``DRYRUN_CELLS`` entry, all started together before the build, at a
+    lower priority: the meta device and the fake backend, no card) on the
+    production meshes: qwen2.5-3b ``train_4k`` on both meshes and with
+    ``--hier`` on the multi-pod one, grok-1-314b ``decode_32k``,
+    zamba2-7b ``long_500k`` and qwen2-moe-a2.7b ``train_4k``; every
+    record ``OK`` with finite, positive roofline terms (the collective
+    term too where the step syncs), one line a cell; each train cell but
+    the hier one traces the partitioned program (``partitioned``, its
+    ``chips`` the mesh's 256 or 512 devices).  (b) Phase 13's flat step
     (qwen2.5-3b widths, 8 layers, bf16, B=4 x 512, AdamW) traced on meta
     by ``dryrun.measure``, then run once on the card under the same
     counter from the seeded state, then timed: the traced peak against
@@ -133,7 +136,14 @@ Phases (every one that fails exits non-zero; there is no CPU path):
     step, and ``model_flops / (ms x 989e12)``; the meta trace counts no
     launch.  (c) ``crosscheck_flops`` on the card for block 1 of
     fleet-gla, fleet-moe and fleet-xlstm at T=512, each within the
-    reference's band.
+    reference's band.  (d) Phase 16's dense partitioned step, traced on
+    meta over a fake (1, 1) mesh at both ``fsdp`` settings in a CPU
+    process started with (a)'s, is held in phase 16 against one more step
+    of each on the card under the same counter: the traced peak against
+    ``max_memory_allocated`` net of the states the phase holds beside the
+    step's arguments (``DRYRUN_PEAK``), the card's counted FLOPs against
+    the traced (``DRYRUN_FLOPS``), no collective on either side
+    (``CommDebugMode`` on the card).
 15. analysis/, the port's static gate against the card: (a) ``python -m
     repro_torch.analysis --check-baseline`` in a subprocess must exit 0;
     (b) every HMMA / HGMMA in every instantiation of the three libraries,
@@ -162,12 +172,13 @@ Phases (every one that fails exits non-zero; there is no CPU path):
     launched 16 times a step on the local shards, every leaf's
     placements kept, ``CommDebugMode``'s collectives per step by type
     printed; 2 more steps of each timed beside the flat step's, and the
-    peak.
+    peak; then one more step of each against its meta trace (14 (d)).
 17. One JSON line of kernels; last, the ``{"ok": true, ...}`` line.
 
 Each main path (4, 5 and 6 per plan, 7, 8 per plan, 9 per generate call,
 10 per plan, 11, 12, 13 per tier setting and the cloud_mesh step, 14's
-counted flat step, 16 per step of each fsdp setting)
+counted flat step, 16 per step of each fsdp setting and its step
+against the trace)
 zeroes every launch counter just before its steps and reads them just
 after, and fails unless each kernel of the path launched exactly as
 often as the schedule's executed segments (flash per attention or MoE
@@ -238,7 +249,8 @@ SERVE_FRAMES, WHISPER_T, WHISPER_MAX_LEN = 1500, 64, 448
 # state widths (d_model, FF widths and, but for qwen2-moe-a2.7b, vocab
 # cut; B=2, T=512 positions, gemma3-12b's window 256 and pixtral-12b's
 # prefix 256 to keep their share of the prompt), the kernels' rounding
-# emulated: zamba2-7b 0.1261 and 0.0977, qwen2.5-3b 0.0196 and 0.0194,
+# emulated, each file on one intra-op thread: zamba2-7b 0.1267 and
+# 0.0821, qwen2.5-3b 0.0155 and 0.0165,
 # xlstm-350m 0.0882 and 0.0311 (its mLSTM heads of 512 on the wide
 # tensor-core kernel's split TF32 products; 0.0805 and 0.0486 on the
 # CUDA-core kernel's f32 FMAs, whose (a) bound of 0.17 now misses twice),
@@ -257,7 +269,7 @@ SERVE_FRAMES, WHISPER_T, WHISPER_MAX_LEN = 1500, 64, 448
 # 8,192 it read 0.0617 and 0.1120, half the card's (a)).  The kernels
 # themselves are held to the TOL rule in phase 3, and the ports of these
 # models to JAX's on the CPU (tests/test_torch_serve_families.py).
-SERVE_TOL = {"zamba2-7b": (0.26, 0.2), "qwen2.5-3b": (0.04, 0.04),
+SERVE_TOL = {"zamba2-7b": (0.26, 0.17), "qwen2.5-3b": (0.04, 0.04),
              "qwen2-moe-a2.7b": (0.21, 0.25), "xlstm-350m": (0.18, 0.1),
              "whisper-base": (0.02, 0.02), "grok-1-314b": (0.02, 0.022),
              "gemma3-12b": (0.03, 0.04), "phi3-medium-14b": (0.035, 0.045),
@@ -2517,32 +2529,55 @@ CROSS_BANDS = {"mamba2": (0.9, 1.1), "moe": (0.6, 1.4), "mlstm": (0.9, 1.1)}
 CROSS_B = 2
 
 
+def start_cpu_process(root: Path, args: tuple, cmd: list):
+    """``(args, process)``: ``cmd`` started from ``root`` on the CPU only
+    (the meta device and the fake backend), one intra-op thread, at a
+    lower priority than this process."""
+    env = dict(os.environ, PYTHONPATH=f"{root / 'src'}{os.pathsep}{root}",
+               OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    return args, subprocess.Popen(
+        cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, preexec_fn=lambda: os.nice(10))
+
+
 def start_dryruns(root: Path, out: Path) -> list:
     """Starts one ``python -m repro_torch.launch.dryrun`` per
-    ``DRYRUN_CELLS`` entry (CPU only: the meta device and the fake
-    backend), each writing its records under ``out``."""
-    env = dict(os.environ, PYTHONPATH=str(root / "src"),
-               OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
-    procs = []
-    for i, args in enumerate(DRYRUN_CELLS):
-        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
-               "--out", str(out / f"cells{i}.json")]
-        procs.append((args, subprocess.Popen(
-            cmd, cwd=root, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)))
-    return procs
+    ``DRYRUN_CELLS`` entry, each writing its records under ``out``.  The
+    smoke starts them before the build, so that the partitioned cells'
+    sharding propagation (minutes on the multi-pod mesh) overlaps the
+    card's phases."""
+    return [start_cpu_process(root, args, [
+        sys.executable, "-m", "repro_torch.launch.dryrun", *args, "--out",
+        str(out / f"cells{i}.json")]) for i, args in enumerate(DRYRUN_CELLS)]
+
+
+def start_trace_partition(root: Path, out: Path):
+    """Starts (d)'s trace of phase 16's dense step
+    (:func:`trace_partition`), writing ``out / "partition.json"``."""
+    return start_cpu_process(root, ("partition",), [
+        sys.executable, "-c", "import sys, chip_smoke; "
+        "chip_smoke.trace_partition(sys.argv[1])",
+        str(out / "partition.json")])
+
+
+def wait_dryrun(args, p) -> None:
+    """Waits for one of :func:`start_dryruns`' processes; fails on a
+    nonzero exit, printing its output."""
+    log = p.communicate(timeout=DRYRUN_TIMEOUT)[0]
+    if p.returncode != 0:
+        print(log)
+        fail(f"dry run {' '.join(args)} exited {p.returncode}")
 
 
 def finish_dryruns(procs, out: Path) -> list:
-    """Waits for :func:`start_dryruns`' processes; every record must be
-    ``OK`` with finite, positive compute and memory terms (and a positive
-    collective term where the step syncs over the pod axis)."""
+    """Waits for :func:`start_dryruns`' processes; every
+    record must be ``OK`` with finite, positive compute and memory terms
+    (and a positive collective term where the step syncs over the pod
+    axis or, partitioned, over ``model`` > 1 or FSDP); a train cell
+    (not hier) partitioned, its ``chips`` the mesh's devices."""
     records = []
     for i, (args, p) in enumerate(procs):
-        log = p.communicate(timeout=DRYRUN_TIMEOUT)[0]
-        if p.returncode != 0:
-            print(log)
-            fail(f"dry run {' '.join(args)} exited {p.returncode}")
+        wait_dryrun(args, p)
         with open(out / f"cells{i}.json") as f:
             records += json.load(f)
     for r in records:
@@ -2552,20 +2587,66 @@ def finish_dryruns(procs, out: Path) -> list:
         if r["status"] != "OK":
             fail(f"dry run {tag}: {r['status']} {r.get('error')}")
         roof, mem = r["roofline"], r["memory"]
+        devices = math.prod(r["mesh"].values())
+        train = r["kind"] == "train" and not r["hier"]
+        if train != r["partitioned"] or \
+                (train and r["ranks"] != devices):
+            fail(f"dry run {tag}: partitioned {r['partitioned']}, chips "
+                 f"{r['ranks']} of {devices} devices")
+        syncs = r["hier"] or (r["partitioned"] and (
+            r["mesh"].get("model", 1) > 1 or r["fsdp"]))
         terms = ("compute_s", "memory_s") + \
-            (("collective_s",) if r["hier"] else ())
+            (("collective_s",) if syncs else ())
         if not all(math.isfinite(roof[k]) and roof[k] > 0 for k in terms):
             fail(f"dry run {tag}: roofline {roof}")
-        print(f"  dry run {tag}: trace {r['trace_s']} s, peak "
-              f"{mem['peak_gb']:.2f} GB a rank (fits 80 GB: "
-              f"{mem['fits_80gb']}), sharded state "
-              f"{mem['sharded_state_gb']:.2f} GB a device; compute / "
-              f"memory / collective {roof['compute_s']} / "
-              f"{roof['memory_s']} / {roof['collective_s']} s, "
+        unit = "device" if r["partitioned"] else "rank"
+        print(f"  dry run {tag}: partitioned {r['partitioned']} on "
+              f"{r['ranks']} chips; trace {r['trace_s']} s, peak "
+              f"{mem['peak_gb']:.2f} GB a {unit} (fits 80 GB: "
+              f"{mem['fits_80gb']}), arguments {mem['argument_gb']:.3f} "
+              f"GB, sharded state {mem['sharded_state_gb']:.3f} GB a "
+              f"device; compute / memory / collective {roof['compute_s']} "
+              f"/ {roof['memory_s']} / {roof['collective_s']} s, "
               f"{roof['dominant']}; useful {roof['useful_ratio']}; "
-              f"collectives {r['collectives']['counts']}"
+              f"collectives {r['collectives']['counts']} "
+              f"{r['collectives']['by_kind_gb']} GB"
               + (f"; tiers {r['tiers']}" if r.get("tiers") else ""))
     return records
+
+
+def trace_partition(out: str) -> None:
+    """(d)'s CPU side, in a process of its own (the fake group is this
+    process's default group): phase 16's dense step (``hier_config``,
+    AdamW, ``HIER_B`` x ``HIER_T``, one microbatch) through
+    ``partitioned_step`` traced on meta by ``dryrun.measure`` over a fake
+    ``(data, model) = (1, 1)`` mesh at ``fsdp`` False and True; the
+    records, keyed by ``fsdp``, to ``out``."""
+    import torch
+    from repro_torch import configs, optim, train
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.models.lm import model as lm_model
+    cfg = hier_config(configs)
+    shape = ShapeSpec("hier", HIER_T, HIER_B, "train")
+    model = lm_model.build_model(cfg)
+    opt = optim.AdamW(lr=HIER_LR)
+    state = train.init_state(model, opt, torch.Generator(), "meta")
+    model_flops = dryrun._model_flops(cfg, shape, dryrun._active_params(
+        cfg, state["params"]))
+    specs = configs.input_specs(cfg, shape)
+    mesh = lmesh.make_fake_mesh((1, 1), ("data", "model"))
+    records = {}
+    try:
+        for fsdp in (False, True):
+            program = dryrun.partitioned_program(
+                train.make_train_step(model, opt), mesh, state, specs, fsdp)
+            records[str(fsdp)] = dryrun.measure(program,
+                                                model_flops=model_flops)
+    finally:
+        lmesh.release_production_mesh()
+    with open(out, "w") as f:
+        json.dump(records, f)
 
 
 def dryrun_vs_card(torch, kernels, lm_model, optim, train, dryrun,
@@ -2672,9 +2753,11 @@ def crosscheck_fleets(torch, lm_layerstack, crosscheck_flops,
     return out
 
 
-def run_launch(torch, kernels, root: Path, cfg, shape) -> dict:
-    """Phase 14: (a)'s processes started first, (b) and (c) on the card
-    while they run, then (a)'s records; the phase's seconds."""
+def run_launch(torch, kernels, dryruns, dry_out: Path, cfg, shape
+               ) -> dict:
+    """Phase 14: (b) and (c) on the card, then (a)'s records from the
+    processes ``dryruns`` (:func:`start_dryruns`, writing under
+    ``dry_out``); the phase's seconds."""
     from repro_torch import optim, train
     from repro_torch.data.pipeline import make_lm_batch_fn
     from repro_torch.launch import dryrun
@@ -2683,20 +2766,17 @@ def run_launch(torch, kernels, root: Path, cfg, shape) -> dict:
     from repro_torch.models.lm.layerstack import (crosscheck_flops,
                                                   lm_layerstack)
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        procs = start_dryruns(root, Path(tmp))
-        try:
-            vs_card = dryrun_vs_card(torch, kernels, lm_model, optim, train,
-                                     dryrun, make_lm_batch_fn, shape, cfg)
-            cross = crosscheck_fleets(torch, lm_layerstack, crosscheck_flops,
-                                      fleet_configs)
-            cells = finish_dryruns(procs, Path(tmp))
-        finally:
-            for _, p in procs:
-                p.kill()
+    vs_card = dryrun_vs_card(torch, kernels, lm_model, optim, train,
+                             dryrun, make_lm_batch_fn, shape, cfg)
+    cross = crosscheck_fleets(torch, lm_layerstack, crosscheck_flops,
+                              fleet_configs)
+    t1 = time.perf_counter()
+    cells = finish_dryruns(dryruns, dry_out)
     out = {"cells": cells, "vs_card": vs_card, "crosscheck": cross,
+           "waited_s": time.perf_counter() - t1,
            "phase_s": time.perf_counter() - t0}
-    print(f"  launch/ phase: {out['phase_s']:.1f} s")
+    print(f"  launch/ phase: {out['phase_s']:.1f} s ({out['waited_s']:.1f} s "
+          f"of it waiting for the dry runs)")
     return out
 
 
@@ -2984,8 +3064,70 @@ def drive(torch, kernels, step, state, batches, kept=None,
     return out
 
 
+def partition_vs_trace(torch, kernels, dryrun, pstep, state, batch,
+                       traced: dict, label: str) -> dict:
+    """Phase 14 (d)'s card side: one partitioned step (``pstep``, from
+    the laid-out ``state`` and ``batch``) under ``dryrun.measure``'s
+    counter and ``CommDebugMode``, held against ``traced``, the same
+    step traced on meta over a fake (1, 1) mesh
+    (:func:`trace_partition`): the traced peak against the card's
+    ``max_memory_allocated`` net of what this harness holds beside the
+    step's arguments (the plain state it laid out and the flat run's
+    state), within ``DRYRUN_PEAK``; the card's counted FLOPs against the
+    traced count within ``DRYRUN_FLOPS`` (flash's forward is opaque on
+    the card); no collective on either side; flash launched as in a
+    checked step."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.device import is_dtensor
+
+    def local_bytes(tree):
+        return sum((x.to_local() if is_dtensor(x) else x).numel()
+                   * x.element_size() for _, x in leaves(tree))
+    args_bytes = local_bytes(state) + local_bytes(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    zero_counters(kernels)
+    with CommDebugMode() as comm:
+        card = dryrun.measure(dryrun.Program(pstep, (state, batch, 0)),
+                              model_flops=traced["roofline"]["model_flops"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_counters(kernels)
+    held = start - args_bytes
+    peaks = (traced["memory"]["peak_gb"] * 1e9, peak - held)
+    flops = (traced["xla_cost"]["flops_per_dev"],
+             card["xla_cost"]["flops_per_dev"])
+    comms = {"card": comm.get_total_counts(),
+             "traced": sum(traced["collectives"]["counts"].values()),
+             "card_counted": sum(card["collectives"]["counts"].values())}
+    print(f"  {label} against its meta trace: peak GiB traced "
+          f"{peaks[0] / 2 ** 30:.3f}, card {peaks[1] / 2 ** 30:.3f} net of "
+          f"{held / 2 ** 30:.3f} held beside the step's arguments "
+          f"(max_memory_allocated {peak / 2 ** 30:.3f}; arguments traced "
+          f"{traced['memory']['argument_gb'] * 1e9 / 2 ** 30:.3f}, card "
+          f"{args_bytes / 2 ** 30:.3f}); FLOPs traced {flops[0]:.6e}, "
+          f"counted on the card {flops[1]:.6e} ({flops[1] / flops[0]:.4f}); "
+          f"bytes traced {traced['xla_cost']['bytes_per_dev']:.6e}, card "
+          f"{card['xla_cost']['bytes_per_dev']:.6e}; collectives {comms}; "
+          f"launches {launches}; trace {traced['trace_s']} s, counted card "
+          f"step {card['trace_s']} s")
+    if not DRYRUN_PEAK[0] <= peaks[0] / peaks[1] <= DRYRUN_PEAK[1]:
+        fail(f"{label}: traced peak / card peak {peaks[0] / peaks[1]}")
+    if not DRYRUN_FLOPS[0] <= flops[1] / flops[0] <= DRYRUN_FLOPS[1]:
+        fail(f"{label}: card FLOPs / traced {flops[1] / flops[0]}")
+    if any(comms.values()):
+        fail(f"{label}: collectives on a (1, 1) mesh {comms}")
+    return {"traced": traced, "card": card, "card_peak_bytes": peak,
+            "held_bytes": held, "argument_bytes": args_bytes,
+            "peak_ratio": peaks[0] / peaks[1],
+            "flops_ratio": flops[1] / flops[0], "collectives": comms,
+            "launches": launches}
+
+
 def run_partition(torch, kernels, tmp: Path, lm_model, optim, train,
-                  make_batch_fn, shape, cfg, configs) -> dict:
+                  make_batch_fn, shape, cfg, configs, trace, dry_out: Path
+                  ) -> dict:
     """Phase 16 on a one-rank NCCL group (a ``FileStore`` under ``tmp``),
     destroyed at the end: phase 13's flat step (``make_train_step``,
     AdamW, B x T) through ``distrib.partition.partitioned_step`` on a
@@ -2995,12 +3137,18 @@ def run_partition(torch, kernels, tmp: Path, lm_model, optim, train,
     first leaf that differs printed and each loss held to one bf16
     rounding), flash launched as the layers imply every step, every
     leaf's placements kept, ``CommDebugMode``'s collectives per step by
-    type; step ms beside the flat step's and the peak.  Then, on the same
-    group and mesh, each of ``PART_FAMILIES``
-    (:func:`run_partition_family`)."""
+    type; step ms beside the flat step's and the peak; one more step of
+    each against its meta trace (phase 14 (d): the process ``trace`` of
+    :func:`start_trace_partition`, its records under ``dry_out``;
+    :func:`partition_vs_trace`).  Then, on the same group and mesh, each
+    of ``PART_FAMILIES`` (:func:`run_partition_family`)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.distrib import partition, sharding
+    from repro_torch.launch import dryrun
+    wait_dryrun(*trace)
+    with open(dry_out / "partition.json") as f:
+        traced = json.load(f)
     dist.init_process_group("nccl", store=dist.FileStore(
         str(tmp / "store"), 1), rank=0, world_size=1,
         device_id=torch.device("cuda", 0))
@@ -3045,7 +3193,8 @@ def run_partition(torch, kernels, tmp: Path, lm_model, optim, train,
             with deterministic(torch):
                 run = drive(torch, kernels, pstep, partition.distribute_tree(
                     state0, mesh, shard), batches, kept=kept)
-            got = dict(leaves(run.pop("state")))
+            after = run.pop("state")
+            got = dict(leaves(after))
             differs = [k for k in want if not torch.equal(
                 got[k].to_local(), want[k])]
             losses = [float(x) for x in run["losses"]]
@@ -3072,11 +3221,23 @@ def run_partition(torch, kernels, tmp: Path, lm_model, optim, train,
                      f"a step")
             del got
             torch.cuda.empty_cache()
+            vs = partition_vs_trace(
+                torch, kernels, dryrun, pstep, after,
+                partition.distribute_tree(batches[0], mesh,
+                                          sharding.batch_shardings(
+                                              mesh, batches[0])),
+                traced[str(fsdp)], label)
+            if vs["launches"] != one:
+                fail(f"{label} against its trace: launches "
+                     f"{vs['launches']}, expected {one}")
+            del after
+            torch.cuda.empty_cache()
             out[f"fsdp_{fsdp}"] = dict(
                 run, losses=losses, bitwise=bitwise, differs=differs[:8],
                 loss_rel=worst, launches_per_step=one,
                 launches={n: sum(c[n] for c in run["launches"])
                           for n in one})
+            out[f"traced_fsdp_{fsdp}"] = dict(vs, launches_per_step=one)
         del want, state0
         torch.cuda.empty_cache()
         for arch, cut in PART_FAMILIES:
@@ -3231,6 +3392,20 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs only on the card")
     root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        dryruns = start_dryruns(root, Path(tmp))
+        trace = start_trace_partition(root, Path(tmp))
+        try:
+            return run_phases(torch, root, dryruns, trace, Path(tmp))
+        finally:
+            for _, p in dryruns + [trace]:
+                p.kill()
+
+
+def run_phases(torch, root: Path, dryruns, trace, dry_out: Path) -> int:
+    """Phases 1-17, with phase 14's CPU processes (``dryruns`` and
+    ``trace``, started first, writing under ``dry_out``) running beside
+    them."""
     sys.path.insert(0, str(root / "src"))
     from repro_torch import api
     from repro_torch import configs
@@ -3441,7 +3616,7 @@ def main() -> int:
     print(f"main path: launch/ dry runs ({len(DRYRUN_CELLS)} processes: "
           f"meta device, fake backend); {HIER_ARCH} {HIER_REDUCED} flat "
           f"step traced on meta and run on the card; crosscheck_flops")
-    launch = run_launch(torch, kernels, root, hcfg,
+    launch = run_launch(torch, kernels, dryruns, dry_out, hcfg,
                         ShapeSpec("hier", HIER_T, HIER_B, "train"))
     vs_card = launch["vs_card"]
 
@@ -3465,7 +3640,8 @@ def main() -> int:
                              make_batch_fn=make_lm_batch_fn,
                              shape=ShapeSpec("hier", HIER_T, HIER_B,
                                              "train"), cfg=hcfg,
-                             configs=configs)
+                             configs=configs, trace=trace,
+                             dry_out=dry_out)
     print(f"  phase 16 took {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
@@ -3485,7 +3661,8 @@ def main() -> int:
                  "alexnet_cloud_tree_E2": distrib["cloud"],
                  "dryrun_flat_step": vs_card,
                  **{f"partition_{k}": part[k]
-                    for k in ("fsdp_False", "fsdp_True")},
+                    for k in ("fsdp_False", "fsdp_True", "traced_fsdp_False",
+                              "traced_fsdp_True")},
                  **{f"partition_{a}": part[a] for a, _ in PART_FAMILIES}}
     paths = {k: r["launches"] for k, r in path_runs.items()}
     held = set(alexnet_rows)

@@ -126,6 +126,24 @@ def _kv_group(k: torch.Tensor, h0: int, heads: int, rep: int
     return k[:, :, idx]
 
 
+class DenseGrad(torch.autograd.Function):
+    """The identity; its gradient laid out dense (``contiguous``), the
+    values unchanged.  For a local shard whose gradient goes back into a
+    DTensor: DTensor takes that gradient's strides from its sharding
+    propagation, which sees the global tensor dense, and decides view or
+    copy from them, so a later ``view`` of a permuted local shard fails
+    (torch 2.11 and 2.13; the plain ``mha``'s backward hands back such
+    gradients)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
 def attention_on_shards(q, k, v, attend) -> torch.Tensor:
     """Attention of DTensors, ``attend(q, k, v)`` (the flash kernel, or
     the plain ``mha``) run on each rank's local shard of the model

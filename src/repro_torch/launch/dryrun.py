@@ -1,5 +1,5 @@
 """Multi-pod dry run: trace every (arch x shape x mesh) cell on the meta
-device and count what one rank's program does.
+device and count what one device's program does.
 
 The port of :mod:`repro.launch.dryrun`.  The reference lowers and
 compiles each cell on 512 placeholder host devices and reads XLA's
@@ -14,28 +14,42 @@ rank 0 of 256 or 512).  For each cell it records:
   parallelism, ``fsdp_needed``, the microbatch count and, for
   ``--hier`` train cells, ``choose_tiers`` against the H100 constants
   (:data:`repro_torch.launch.mesh.H100`);
+* ``partitioned``: whether the traced program is the partitioned one;
 * ``memory``: the argument, output, temp and peak bytes of the traced
-  rank (live storages, :class:`Tally`), whether that peak fits the
+  device (live storages, :class:`Tally`), whether that peak fits the
   card, and ``sharded_state_gb``: each param and optimizer-state leaf's
-  local shard under ``param_shardings`` / ``opt_state_shardings``, which
-  is what the reference's devices hold;
+  local shard under ``param_shardings`` / ``opt_state_shardings``;
 * ``xla_cost`` (the reference's key): the traced FLOPs and bytes;
-* ``collectives``: operand bytes and counts by kind (the hier cells'
-  tiered sync on the fake mesh's ``pod`` group: its real
-  ``torch.distributed`` calls);
+* ``collectives``: operand bytes and counts by kind;
 * ``roofline``: :class:`Roofline` with the H100's peak, HBM and NVLink
-  rates.
+  rates, ``chips`` the devices that run the program.
 
-What is traced is one data-parallel rank, holding whole weights, on its
-block of the batch (``global_batch`` over the ``pod`` x ``data`` ranks
-that the batch sharding splits it over).  Tensor and FSDP parallelism
-are placed (the sharding rules give ``sharded_state_gb``) but not
-traced: the port executes them in
-:func:`repro_torch.distrib.partition.partitioned_step`, the counterpart
-of the reference's ``jit(in_shardings=...)``, but this dry run does not
-trace that program yet.  So the roofline's ``chips`` are the
-data-parallel ranks, not the mesh's devices.  A train cell's microbatch
-loop is traced through
+A train cell traces the partitioned program, the counterpart of the
+reference's ``jit(step, in_shardings=..., out_shardings=...)``:
+:func:`repro_torch.distrib.partition.partitioned_step` over
+``make_train_step``, its state and batch DTensors over the whole mesh,
+each made from this device's local shard on meta
+(:func:`placed_on_meta`: nothing is cut or copied).  DTensor's dispatch
+runs each operation on the local shards with the tensor-parallel and
+FSDP collectives its sharding propagation chooses, and the
+:class:`Tally` counts those local operations and collectives: so
+``chips`` is the mesh's devices, ``memory.argument_gb`` is the local
+state (``sharded_state_gb``) plus the local batch, and ``collectives``
+are the TP / FSDP ones.  The mesh is a CPU ``DeviceMesh``: where DTensor
+would send an all-to-all it gathers and slices (its CPU route), which
+hands the transport the same operand bytes under another kind.
+
+Two kinds of cell are not partitioned (``partitioned: false``):
+
+* ``--hier`` train cells trace ``make_train_step(hier_sync=True)``: one
+  pod rank holding whole weights on its pod's block of the batch, its
+  tiered sync the real ``torch.distributed`` calls on the fake mesh's
+  ``pod`` group (TP / FSDP inside a pod is not ported yet);
+* prefill and decode cells trace one data-parallel rank holding whole
+  weights on its block of the batch (the port has no partitioned
+  serving yet); ``chips`` are the data-parallel ranks.
+
+A train cell's microbatch loop is traced through
 :func:`repro_torch.launch.hlo_analysis.trip_range` (first microbatch
 once, the second for the other ``k - 1``), which is exact: the
 microbatches have one shape.  The three CUDA kernels are opaque to the
@@ -66,6 +80,7 @@ from repro_torch.configs import ARCHS, SHAPES, get_arch, input_specs
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.distrib import (batch_shardings, choose_tiers, compat,
                                  opt_state_shardings, param_shardings)
+from repro_torch.distrib.partition import partitioned_step
 from repro_torch.distrib.sharding import axis_names, axis_size, fsdp_needed
 from repro_torch.distrib.tiered_sync import TierAssignment
 from repro_torch.launch.hlo_analysis import Roofline, Tally
@@ -75,7 +90,7 @@ from repro_torch.models.lm.model import build_model
 from repro_torch.optim import get_optimizer
 from repro_torch.serve.engine import make_decode_step, make_prefill_step
 from repro_torch.train.step import make_train_step
-from repro_torch.tree import leaves
+from repro_torch.tree import leaves, tree_map
 
 META = torch.device("meta")
 
@@ -171,6 +186,42 @@ def measure(program: Program, *, model_flops: float, ranks: int = 1,
     }
 
 
+def placed_on_meta(mesh, shapes, shardings):
+    """Each leaf of ``shapes`` (global shapes on meta) as a DTensor over
+    ``mesh`` with the matching leaf of ``shardings``: this rank's local
+    shard, on meta, made as such (``DTensor.from_local``), so that nothing
+    is cut, copied or sent: the state and batch that the reference's
+    ``in_shardings`` hand its program."""
+    from torch.distributed.tensor import DTensor
+
+    def one(t, pl):
+        local = torch.empty(local_shape(mesh, t.shape, pl), dtype=t.dtype,
+                            device=META)
+        return DTensor.from_local(local, mesh, pl, run_check=False,
+                                  shape=t.shape, stride=t.stride())
+    return tree_map(one, shapes, shardings)
+
+
+def partitioned_program(step: Callable, mesh, state_shapes,
+                        specs: Dict[str, Tuple[Tuple[int, ...], torch.dtype]],
+                        fsdp: bool) -> Program:
+    """``step(state, batch, 0)`` through ``partitioned_step`` over
+    ``mesh``: the state (global shapes on meta) laid out by
+    ``param_shardings`` / ``opt_state_shardings`` and the global batch of
+    ``specs`` by ``batch_shardings``, each as this device's local shards
+    (:func:`placed_on_meta`)."""
+    shard = {"params": param_shardings(mesh, state_shapes["params"],
+                                       fsdp=fsdp),
+             "opt": opt_state_shardings(mesh, state_shapes["opt"],
+                                        fsdp=fsdp)}
+    batch = {k: torch.empty(s, dtype=dtype, device=META)
+             for k, (s, dtype) in specs.items()}
+    bshard = batch_shardings(mesh, batch)
+    return Program(partitioned_step(step, mesh, shard, bshard), (
+        placed_on_meta(mesh, state_shapes, shard),
+        placed_on_meta(mesh, batch, bshard), 0), mesh)
+
+
 def _meta_batch(mesh, specs: Dict[str, Tuple[Tuple[int, ...], torch.dtype]],
                 pods: int = 1) -> Dict[str, torch.Tensor]:
     """One rank's block of the batch whose ``(shape, dtype)`` are
@@ -240,6 +291,7 @@ def lower_cell(arch_id: str, shape_name: Union[str, ShapeSpec], mesh, *,
         "fsdp": fsdp, "seq_parallel": cfg.seq_parallel, "microbatches": mb,
         "active_params": active, "total_params": total_params,
         "ranks": ranks, "model_flops": _model_flops(cfg, shape, active),
+        "partitioned": False,
     }
     specs = input_specs(cfg, shape)
 
@@ -265,9 +317,12 @@ def lower_cell(arch_id: str, shape_name: Union[str, ShapeSpec], mesh, *,
             meta["tiers"] = tiers.describe()
         step = make_train_step(model, opt, microbatches=mb,
                                hier_sync=hier, tiers=tiers)
-        batch = _meta_batch(mesh, specs, pods)
-        return Program(step, ({"params": param_shapes, "opt": opt_shapes},
-                              batch, 0), mesh), meta
+        state = {"params": param_shapes, "opt": opt_shapes}
+        if hier:
+            return Program(step, (state, _meta_batch(mesh, specs, pods), 0),
+                           mesh), meta
+        meta.update(partitioned=True, ranks=mesh_chips(mesh))
+        return partitioned_program(step, mesh, state, specs, fsdp), meta
 
     meta["sharded_state_bytes"] = sharded_bytes(mesh, param_shapes, pshard)
     if shape.kind == "prefill":
@@ -359,8 +414,10 @@ def main(argv=None) -> int:
                         dt = time.perf_counter() - t0
                         meta["wall_s"] = round(dt, 1)
                         r = meta["roofline"]
+                        unit = "dev" if meta["partitioned"] else "rank"
                         print(f"[OK]  {tag}: trace={meta['trace_s']}s "
-                              f"peak={meta['memory']['peak_gb']:.2f}GB/rank "
+                              f"peak={meta['memory']['peak_gb']:.2f}GB/"
+                              f"{unit} "
                               f"sharded={meta['memory']['sharded_state_gb']:.2f}"
                               f"GB/dev dominant={r['dominant']} "
                               f"terms(c/m/n)={r['compute_s']:.4f}/"

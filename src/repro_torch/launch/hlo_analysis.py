@@ -22,6 +22,15 @@ every ATen op, forward, backward and recomputed alike:
   until it is freed, on top of the call's arguments; the peak is the
   most live at once.
 
+On DTensors (the partitioned step) the counter lets DTensor dispatch
+first (it returns ``NotImplemented`` for an op on DTensors, as
+``CommDebugMode`` does) and counts what DTensor then runs: each rank's
+local operations on its shards, and the ``_c10d_functional``
+collectives of its redistributions, each once (its ``wait_tensor``
+moves nothing).  The arguments and results count by their local shards.
+The shape inference of DTensor's sharding propagation, which runs the
+op on global shapes under a ``FakeTensorMode``, is not counted.
+
 The CUDA kernels of the port are one opaque op to the counter on the
 card, as a Pallas call is to the reference's dot count: their FLOPs and
 bytes are not seen.  On the CPU and the meta device their wrappers run
@@ -104,6 +113,24 @@ def _collective(func) -> Tuple[str, str]:
     return kind, next((n for n in _OPERANDS if n in names), names[0])
 
 
+# a functional collective's handles, which move no data
+_BOOKKEEPING = {"wait_tensor", "_wrap_tensor_autograd"}
+
+
+def _in_fake_mode() -> bool:
+    """Whether a ``FakeTensorMode`` is on the dispatch stack: DTensor's
+    sharding propagation infers an op's global output shape under one."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    return any(isinstance(m, FakeTensorMode)
+               for m in _get_current_dispatch_mode_stack())
+
+
+def _locals(x) -> List[torch.Tensor]:
+    """The tensors in ``x``, each DTensor as its local shard."""
+    return [getattr(t, "_local_tensor", t) for t in _tensors(x)]
+
+
 _ACTIVE: List["Tally"] = []
 _DECOMPOSES: Dict[Any, bool] = {}
 
@@ -125,8 +152,10 @@ class Tally(TorchDispatchMode):
 
     def __init__(self, trips: bool = True) -> None:
         super().__init__()
+        from torch.distributed.tensor import DTensor
         from torch.utils.flop_counter import flop_registry
         self._formulas = flop_registry
+        self._dtensor = DTensor
         self.trips = trips
         self.scale = 1
         self.flops = 0.0
@@ -165,9 +194,14 @@ class Tally(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if any(issubclass(t, self._dtensor) for t in types):
+            return NotImplemented
         packet = func._overloadpacket
         if packet.__name__ in _QUERIES or \
-                func is torch.ops.prim.device.default:
+                func is torch.ops.prim.device.default or _in_fake_mode():
+            return func(*args, **kwargs)
+        if func.namespace == "_c10d_functional" and \
+                packet.__name__ in _BOOKKEEPING:
             return func(*args, **kwargs)
         if packet not in self._formulas and _decomposes(func):
             with self:
@@ -191,8 +225,10 @@ class Tally(TorchDispatchMode):
         if not func.is_view:
             self.bytes += s * sum(_nbytes(t) for t in _tensors(
                 (args, kwargs, out)))
-        for t in _tensors(out):
-            self._hold(t)
+            # a view's storage is its base's (on meta, ``split``'s views
+            # come back with storages of their own)
+            for t in _tensors(out):
+                self._hold(t)
         self.peak = max(self.peak, self.live)
         return out
 
@@ -200,7 +236,7 @@ class Tally(TorchDispatchMode):
         """``fn(*args, **kwargs)`` counted; the arguments' storages are
         live from the start.  ``output_bytes`` are the result's storages
         that are not the arguments'."""
-        args_in = _tensors((args, kwargs))
+        args_in = _locals((args, kwargs))
         for t in args_in:
             self.argument_bytes += self._hold(t)
         self.peak = self.live
@@ -210,7 +246,7 @@ class Tally(TorchDispatchMode):
                 out = fn(*args, **kwargs)
         finally:
             _ACTIVE.remove(self)
-        outs = _tensors(out)
+        outs = _locals(out)
         for t in outs:
             self._hold(t)
         self.peak = max(self.peak, self.live)

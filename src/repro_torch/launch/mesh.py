@@ -62,15 +62,21 @@ def release_production_mesh() -> None:
         dist.destroy_process_group()
 
 
+def make_fake_mesh(shape, axes):
+    """A CPU ``DeviceMesh`` of ``shape`` named ``axes`` over the fake
+    backend, this process rank 0 (release it with
+    :func:`release_production_mesh`)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    _fake_group(int(np.prod(shape)))
+    return init_device_mesh("cpu", tuple(shape), mesh_dim_names=tuple(axes))
+
+
 def make_production_mesh(*, multi_pod: bool = False):
     """``(16, 16)`` ``("data", "model")``, or ``(2, 16, 16)`` ``("pod",
-    "data", "model")``, as a CPU ``DeviceMesh`` over the fake backend
-    (release it with :func:`release_production_mesh`)."""
-    from torch.distributed.device_mesh import init_device_mesh
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    _fake_group(int(np.prod(shape)))
-    return init_device_mesh("cpu", shape, mesh_dim_names=axes)
+    "data", "model")``, over the fake backend (:func:`make_fake_mesh`)."""
+    if multi_pod:
+        return make_fake_mesh((2, 16, 16), ("pod", "data", "model"))
+    return make_fake_mesh((16, 16), ("data", "model"))
 
 
 def mesh_chips(mesh) -> int:

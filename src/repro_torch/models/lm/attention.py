@@ -16,8 +16,8 @@ import torch
 
 from repro_torch.device import is_dtensor
 from repro_torch.models.lm.common import (Params, ambient_abstract_mesh,
-                                          apply_rope, shard_hint,
-                                          split_shardable,
+                                          apply_rope, merge_heads,
+                                          shard_hint, split_shardable,
                                           truncated_normal_init)
 
 
@@ -105,7 +105,8 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     if is_dtensor(q):
         from repro_torch.kernels import ops as kops
         return kops.attention_on_shards(q, k, v, lambda a, b, c: mha(
-            a, b, c, causal=causal, window=window, q_offset=q_offset))
+            *(kops.DenseGrad.apply(t) for t in (a, b, c)), causal=causal,
+            window=window, q_offset=q_offset))
     B, T, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
     rep = H // KV
@@ -159,7 +160,7 @@ def self_attention(p: Params, x: torch.Tensor, *, n_heads: int,
         out = kops.flash_attention(q, k, v, causal=causal, window=window)
     else:
         out = mha(q, k, v, causal=causal, window=window, block_q=block_q)
-    return out.reshape(B, T, n_heads * head_dim) @ p["wo"]
+    return merge_heads(out) @ p["wo"]
 
 
 def cross_attention(p: Params, x: torch.Tensor, enc_out: torch.Tensor, *,
@@ -170,7 +171,7 @@ def cross_attention(p: Params, x: torch.Tensor, enc_out: torch.Tensor, *,
     q, k, v = _qkv_hints(*_project_qkv(p, x, enc_out, n_heads, n_kv_heads,
                                        head_dim))
     out = mha(q, k, v, causal=False, block_q=block_q)
-    return out.reshape(B, T, n_heads * head_dim) @ p["wo"]
+    return merge_heads(out) @ p["wo"]
 
 
 # ---------------------------------------------------------------------------

@@ -71,16 +71,26 @@ def shard_hint(x: torch.Tensor, *axes) -> torch.Tensor:
 def split_shardable(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
     """``x`` ready for a view that splits ``dim`` into ``n`` parts of its
     size: a DTensor is first gathered on each mesh dim that shards ``dim``
-    over a number of ranks not dividing ``n`` (DTensor's view cannot
-    split such a dim; XLA's partitioner regathers there too).  A plain
-    tensor as it is."""
+    where the ranks sharding it so far, major first, do not divide ``n``
+    (DTensor's view cannot split such a dim; XLA's partitioner regathers
+    there too).  The product, not each mesh dim alone: DTensor's view
+    checks each mesh dim alone, and a dim sharded over two of them (the
+    batch over ``("pod", "data")``) whose product does not divide ``n``
+    comes out with local shards of the wrong shape (torch 2.11 and 2.13).
+    A plain tensor as it is."""
     if not is_dtensor(x):
         return x
     from torch.distributed.tensor import Replicate
     dim %= x.dim()
     mesh = x.device_mesh
-    pl = tuple(Replicate() if p.is_shard(dim) and n % mesh.size(i) else p
-               for i, p in enumerate(x.placements))
+    pl, ranks = [], 1
+    for i, p in enumerate(x.placements):
+        if p.is_shard(dim) and n % (ranks * mesh.size(i)) == 0:
+            ranks *= mesh.size(i)
+        elif p.is_shard(dim):
+            p = Replicate()
+        pl.append(p)
+    pl = tuple(pl)
     return x if pl == x.placements else x.redistribute(mesh, pl)
 
 

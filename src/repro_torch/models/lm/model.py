@@ -32,6 +32,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.device import is_dtensor
 from repro_torch.models.lm import attention as attn
 from repro_torch.models.lm import moe as moe_mod
 from repro_torch.models.lm import ssm as ssm_mod
@@ -348,8 +349,56 @@ def _init_head(generator: torch.Generator, cfg: LMConfig, device=None
 
 def _embed_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
     emb = params["embed"]
+    if is_dtensor(emb) and is_dtensor(tokens):
+        return _embed_on_shards(emb, tokens)
     return emb.index_select(0, tokens.reshape(-1)).reshape(
         tuple(tokens.shape) + (emb.shape[1],))
+
+
+def _embed_on_shards(emb: torch.Tensor, tokens: torch.Tensor
+                     ) -> torch.Tensor:
+    """The lookup of DTensor tokens in a DTensor table on each rank's
+    local shards (Megatron's vocab-parallel embedding): the table
+    gathered but for a vocab split over ``model``, each rank's rows of
+    its tokens looked up, those outside its vocab slice zero, the result
+    a pending sum over ``model`` (a whole lookup where the vocab is not
+    split).  DTensor's own strategy for the lookup's backward pairs
+    replicated indices with a row-sharded gradient on torch 2.11
+    (``index_add``: "Number of indices ... should be equal to
+    tensor.size(dim)")."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = emb.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    m = names.index("model") if "model" in names else -1
+    vocab = m >= 0 and emb.placements[m] == Shard(0)
+    if vocab and tokens.placements[m].is_shard():
+        tokens = tokens.redistribute(mesh, tuple(
+            Replicate() if i == m else p
+            for i, p in enumerate(tokens.placements)))
+    tp = tokens.placements
+    table = tuple(Shard(0) if vocab and i == m else Replicate()
+                  for i in range(len(names)))
+    grad = tuple(table[i] if i == m else
+                 Partial() if tp[i].is_shard() else Replicate()
+                 for i in range(len(names)))
+    local = emb.redistribute(mesh, table).to_local(grad_placements=grad)
+    ids = tokens.to_local().reshape(-1)
+    if vocab:
+        rows = local.shape[0]
+        ids = ids - mesh.get_local_rank(m) * rows
+        inside = (ids >= 0) & (ids < rows)
+        out = local.index_select(0, ids.clamp(0, rows - 1)) * \
+            inside[:, None].to(local.dtype)
+    else:
+        out = local.index_select(0, ids)
+    out_pl = tuple(p if p.is_shard() else
+                   Partial() if vocab and i == m else Replicate()
+                   for i, p in enumerate(tp))
+    shape = tuple(tokens.shape) + (emb.shape[1],)
+    return DTensor.from_local(
+        out.reshape(tuple(tokens.to_local().shape) + (emb.shape[1],)), mesh,
+        out_pl, run_check=False, shape=shape,
+        stride=torch.empty(shape, device="meta").stride())
 
 
 def _prefix_embeds(params: Params, batch: Dict[str, torch.Tensor],

@@ -184,11 +184,58 @@ def _dispatch_on_shards(probs: torch.Tensor, B: int, T: int,
                  for t in (dispatch, combine))
 
 
+def _experts(p: Params, xg: torch.Tensor, dispatch: torch.Tensor,
+             combine: torch.Tensor) -> torch.Tensor:
+    """The routed experts of groups ``xg [ng, G, D]``: dispatched, the
+    SwiGLU of each expert, combined."""
+    expert_in = torch.einsum("gsec,gsd->gecd", dispatch.to(xg.dtype), xg)
+    h_gate = F.silu(torch.einsum("gecd,edf->gecf", expert_in,
+                                 p["w_gate"]).float()).to(xg.dtype)
+    h_up = torch.einsum("gecd,edf->gecf", expert_in, p["w_up"])
+    h = torch.einsum("gecf,efd->gecd", h_gate * h_up, p["w_down"])
+    return torch.einsum("gsec,gecd->gsd", combine.to(xg.dtype), h)
+
+
+def _experts_on_shards(p: Params, xg, dispatch, combine):
+    """:func:`_experts` of DTensors on each rank's local groups (DTensor's
+    einsum strategies put ``model`` on the capacity dim, whose views the
+    next einsum cannot flatten where ``model`` does not divide it).  The
+    expert weights are gathered over the FSDP axis and split over
+    ``model`` on their FF dim where it divides it (Megatron's column /
+    row split), so each rank's output is its share of a pending sum over
+    ``model``; the groups are laid out as :func:`_groups` laid them out.
+    Each gradient is declared as autograd makes it locally: a pending
+    sum over ``model`` for the activations and the routing weights, over
+    the axes that split the groups for the expert weights."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = xg.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    gp = tuple(pl if pl.is_shard(0) else Replicate() for pl in xg.placements)
+    ff = p["w_gate"].shape[-1]
+    m = names.index("model") if "model" in names else -1
+    tp = m >= 0 and ff % mesh.size(m) == 0 and ff >= mesh.size(m)
+    pending = tuple(Partial() if tp and i == m else pl
+                    for i, pl in enumerate(gp))
+    xl, dl, cl = (t.redistribute(mesh, gp).to_local(grad_placements=pending)
+                  for t in (xg, dispatch, combine))
+
+    def local(w, dim):
+        wp = tuple(Shard(dim) if tp and i == m else Replicate()
+                   for i in range(len(names)))
+        gw = tuple(wp[i] if i == m else
+                   Partial() if gp[i].is_shard(0) else Replicate()
+                   for i in range(len(names)))
+        return w.redistribute(mesh, wp).to_local(grad_placements=gw)
+    w = {"w_gate": local(p["w_gate"], 2), "w_up": local(p["w_up"], 2),
+         "w_down": local(p["w_down"], 1)}
+    return DTensor.from_local(_experts(w, xl, dl, cl), mesh, pending,
+                              run_check=False)
+
+
 def apply_moe(p: Params, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
-    """x: [B, T, D] -> [B, T, D].  On DTensors the routing runs on each
-    rank's local groups (:func:`_dispatch_on_shards`) and the expert
-    products on DTensors, the weights as the sharding rules lay them
-    out."""
+    """x: [B, T, D] -> [B, T, D].  On DTensors the routing and the expert
+    products run on each rank's local groups (:func:`_dispatch_on_shards`,
+    :func:`_experts_on_shards`)."""
     B, T, D = x.shape
     G = min(cfg.group_size, B * T)
     n_tok = B * T
@@ -206,12 +253,10 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
             lambda idx: _route(idx.reshape(B, T, -1)).reshape(idx.shape))
         dispatch, combine = _dispatch(probs, cfg, route)
 
-    expert_in = torch.einsum("gsec,gsd->gecd", dispatch.to(xg.dtype), xg)
-    h_gate = F.silu(torch.einsum("gecd,edf->gecf", expert_in,
-                                 p["w_gate"]).float()).to(xg.dtype)
-    h_up = torch.einsum("gecd,edf->gecf", expert_in, p["w_up"])
-    h = torch.einsum("gecf,efd->gecd", h_gate * h_up, p["w_down"])
-    out = torch.einsum("gsec,gecd->gsd", combine.to(xg.dtype), h)
+    if is_dtensor(xg):
+        out = _experts_on_shards(p, xg, dispatch, combine)
+    else:
+        out = _experts(p, xg, dispatch, combine)
 
     if "shared" in p:
         out = out + apply_swiglu(p["shared"], xg)

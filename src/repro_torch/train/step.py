@@ -32,7 +32,7 @@ from repro_torch.distrib.sharding import axis_names, axis_size
 from repro_torch.distrib.tiered_sync import (TierAssignment, group_mean,
                                              sync_seed, tiered_grad_sync)
 from repro_torch.launch.hlo_analysis import trip_range
-from repro_torch.models.lm.common import shard_hint
+from repro_torch.models.lm.common import shard_hint, split_shardable
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.tree import grad, grad_leaves, tree_map
 
@@ -75,6 +75,7 @@ def _microbatched_grads(loss_fn: Callable, params: Tree, batch: Tree,
         return _value_and_grad(loss_fn, params, batch)
 
     def resh(x):
+        x = split_shardable(x, 0, microbatches)
         x = x.reshape((microbatches, x.shape[0] // microbatches)
                       + tuple(x.shape[1:]))
         # the reference keeps each microbatch's batch dim on the DP axes

@@ -11,7 +11,9 @@ partitioned step (src/repro/launch/dryrun.py:144-147), with the
 smoke configs' plain ``chunked_gla`` (``use_gla_kernel=False``: the
 reference's own tests hold it to the interpret-mode Pallas kernel, which
 under ``jit(in_shardings)`` would make this process the slowest part of
-the test); and the spec each of the reference's hints (``_qkv_hints``,
+the test), and for the cases that ask, one device's argument bytes of
+the compiled step (``memory_analysis()``); and the
+spec each of the reference's hints (``_qkv_hints``,
 ``_resid_hint``, the logits chunk's ``shard_hint``) names on each mesh.
 """
 from __future__ import annotations
@@ -71,13 +73,21 @@ def run_case(case: dict, data: dict) -> dict:
     # first laid out) runs the same executable
     state = jax.device_put(state, shard)
     batches = [jax.device_put(b, bshard) for b in batches]
+    out = {}
+    if case.get("tally"):
+        # one device's argument bytes of the compiled partitioned step
+        with compat.set_mesh(mesh):
+            compiled = step.lower(state, batches[0],
+                                  jax.random.PRNGKey(0)).compile()
+        out["argument_bytes"] = int(
+            compiled.memory_analysis().argument_size_in_bytes)
     losses = []
     with compat.set_mesh(mesh):
         for i, b in enumerate(batches):
             state, met = step(state, b, jax.random.PRNGKey(i))
             losses.append(float(met["loss"]))
-    return {"losses": losses,
-            "params": jax.tree.map(np.asarray, state["params"])}
+    return dict(out, losses=losses,
+                params=jax.tree.map(np.asarray, state["params"]))
 
 
 def _reduced(mesh: Mesh, shape, axes) -> tuple:

@@ -30,6 +30,9 @@ from repro_torch.models import cnn as tcnn
 from tests.test_torch_cnn import batch, jax_params, model_pair, to_jax
 from tests.test_torch_hybrid_step import (INT8_LOSS, INT8_TOL,
                                           assert_params_close)
+from tests.test_torch_serve import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 E2E_LOSS_GAP = 0.02
 

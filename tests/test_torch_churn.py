@@ -33,6 +33,9 @@ from repro_torch.data.pipeline import SyntheticImages
 from repro_torch.models import cnn as tcnn
 from repro_torch.train.loop import InjectedFailure
 from tests.test_torch_cnn import tiny_mlp
+from tests.test_torch_serve import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 JAX_MODEL = tiny_mlp(jcnn)
 

@@ -25,6 +25,9 @@ from repro.models import cnn as jcnn
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.core.layerstack import as_layerstack
 from repro_torch.models import cnn as tcnn
+from tests.test_torch_serve import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 jax.config.update("jax_platform_name", "cpu")
 

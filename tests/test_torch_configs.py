@@ -20,6 +20,9 @@ from repro.configs import base as jbase
 from repro_torch import configs as tconfigs
 from repro_torch.configs import base as tbase
 from tests.test_torch_lm import to_torch_config
+from tests.test_torch_serve import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ROOT = Path(__file__).resolve().parents[1]
 PORTED = ("qwen2.5-3b", "phi3-medium-14b", "granite-20b", "gemma3-12b",

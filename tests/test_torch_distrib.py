@@ -62,6 +62,9 @@ from tests.test_kernel_oracle import E2E_PARAM_ATOL, E2E_PARAM_RTOL
 from tests.test_torch_smoke_training import (KERNELS, cpu_card,  # noqa: F401
                                              deterministic_imported)
 from tests.torch_distrib_worker import tiny_mlp
+from tests.test_torch_serve import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -559,3 +562,62 @@ def test_run_partition_family_rehearsed(arch, deterministic_imported,
     assert run["differing_params"] == []
     assert run["bitwise"] or arch == "xlstm-350m"
     assert len(run["step_ms"]) == chip_smoke.PART_TIMED
+
+
+@pytest.mark.parametrize("fsdp", [False, True])
+def test_partition_vs_trace_rehearsed(fsdp, deterministic_imported, cpu_card,
+                                      monkeypatch, tmp_path):
+    """Phase 14 (d) on the CPU: phase 16's dense step on qwen2.5-3b's
+    smoke twin (bf16, flash, B=2 x 16) traced on meta over a fake (1, 1)
+    mesh by ``trace_partition``, then one step of it on a one-rank gloo
+    ``(1, 1)`` mesh under the same counter (``partition_vs_trace``): the
+    CPU counts the FLOPs the trace counts (the plain flash is counted on
+    both), no collective runs on either side, and flash launches once a
+    layer, twice under remat."""
+    import json
+    import torch.distributed as dist
+    import chip_smoke
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import optim, train
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.pipeline import make_lm_batch_fn
+    from repro_torch.distrib import partition
+    from repro_torch.launch import dryrun
+    cfg = configs.get_arch("qwen2.5-3b").smoke.variant(
+        dtype=torch.bfloat16, use_flash=True)
+    monkeypatch.setattr(chip_smoke, "hier_config", lambda configs: cfg)
+    monkeypatch.setattr(chip_smoke, "HIER_B", 2)
+    monkeypatch.setattr(chip_smoke, "HIER_T", 16)
+    monkeypatch.setattr(chip_smoke, "DRYRUN_PEAK", (0.0, float("inf")))
+    chip_smoke.trace_partition(str(tmp_path / "partition.json"))
+    traced = json.loads((tmp_path / "partition.json").read_text())
+    assert sorted(traced) == ["False", "True"] and not dist.is_initialized()
+    model = build_model(cfg)
+    opt = optim.AdamW(lr=chip_smoke.HIER_LR)
+    batch = {k: torch.as_tensor(v) for k, v in make_lm_batch_fn(
+        cfg, ShapeSpec("hier", 16, 2, "train"), seed=0)(0).items()}
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        state = init_state(model, opt, torch.Generator().manual_seed(0),
+                           "cpu")
+        shard = {"params": sh.param_shardings(mesh, state["params"], fsdp),
+                 "opt": sh.opt_state_shardings(mesh, state["opt"], fsdp)}
+        bshard = sh.batch_shardings(mesh, batch)
+        pstep = partition.partitioned_step(
+            train.make_train_step(model, opt), mesh, shard, bshard)
+        got = chip_smoke.partition_vs_trace(
+            torch, KERNELS, dryrun, pstep,
+            partition.distribute_tree(state, mesh, shard),
+            partition.distribute_tree(batch, mesh, bshard),
+            traced[str(fsdp)], f"fsdp={fsdp}")
+    finally:
+        dist.destroy_process_group()
+    assert got["flops_ratio"] == 1.0
+    assert got["collectives"] == {"card": 0, "traced": 0, "card_counted": 0}
+    assert got["launches"] == {"int8_quant": 0, "gla_scan": 0,
+                               "flash_attention": 2 * cfg.n_layers}
+    assert got["argument_bytes"] == traced[str(fsdp)]["memory"][
+        "argument_gb"] * 1e9

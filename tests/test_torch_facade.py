@@ -37,6 +37,9 @@ from repro_torch.models import cnn as tcnn
 from repro_torch.serve import planner as tplanner
 from repro_torch.serve import population as tpopulation
 from repro_torch.train import loop
+from tests.test_torch_serve import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 FLEETS = {
     "triple": dict(m=1),

@@ -50,6 +50,9 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import _build, gla_variants
 from tests.test_kernel_oracle import TOL, _ulp, assert_oracle_close
 from tests.test_torch_flash_numerics import round_bf16, round_tf32
+from tests.test_torch_serve import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 jax.config.update("jax_platform_name", "cpu")
 

@@ -30,6 +30,9 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.core import hybrid_step as ths
 from repro_torch.core.cost_model import MultiSchedule, Schedule
 from tests.test_torch_cnn import batch, jax_params, model_pair, to_jax
+from tests.test_torch_serve import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 jax.config.update("jax_platform_name", "cpu")
 

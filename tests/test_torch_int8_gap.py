@@ -28,6 +28,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import chip_smoke
@@ -43,6 +44,8 @@ from tests.test_kernel_oracle import E2E_LOSS_RTOL
 from tests.test_torch_hybrid_step import INT8_LOSS
 from tests.test_torch_lm import to_torch_config
 from tests.test_torch_serve import one_thread  # noqa: F401  (fixture)
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 jax.config.update("jax_platform_name", "cpu")
 

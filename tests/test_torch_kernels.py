@@ -26,6 +26,9 @@ from repro_torch.core.wire import SCALE_BYTES, int8_wire_bytes, wire_codec
 from repro_torch.kernels import int8_quant as iq
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import ref_quantize_int8
+from tests.test_torch_serve import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 jax.config.update("jax_platform_name", "cpu")
 

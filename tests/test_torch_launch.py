@@ -7,8 +7,9 @@
   optimizer state, and the multi-pod train cells' ``choose_tiers``
   assignment against the port's H100 figures.  The JAX side runs in a
   subprocess on 512 placeholder host devices (``tests.jax_launch_twin``),
-  started beside the port's side; the port's side reads only the mesh's
-  axis sizes (``MeshShape``).
+  started beside the port's side; the port's side lowers each cell on
+  the production meshes over the fake backend (a train cell's state and
+  batch are DTensors there).
 * ``Roofline.row()`` ``==`` the reference's on the same inputs.
 * The micro cell of tests/test_distrib.py:248-295 through ``lower_cell``
   / ``analyse`` on a ``(2, 2, 2)`` mesh over the fake backend: the
@@ -18,6 +19,14 @@
   cols bytes) and one of the f32 row scales (4 rows bytes), by
   ``_as_2d``'s rows, and the loss's all-reduce; the microbatch-multiply
   rule equals a full trace; the counted FLOPs equal ``FlopCounterMode``'s.
+* The partitioned program: a smoke train cell through ``lower_cell`` /
+  ``analyse`` on a fake ``(2, 2)`` mesh records one device (``chips``
+  the mesh's, arguments the state shards and the batch block, TP / FSDP
+  collectives, FLOPs between 1/``model`` and 1 of the whole-weight
+  rank's); the microbatch split of a batch over several ranks (the
+  regression of the strided-shard failure) on ``(2, 2, 2)`` and
+  ``(4, 2)``; ``Tally`` on DTensors counts the local work and DTensor's
+  collectives.
 * ``block_flops`` inside the reference's bands (tests/test_lm_layerstack.py:
   195-213) on its four tiny configs, the head within 1 %.
 * The meta routes: initialisers draw nothing, the kernel wrappers return
@@ -66,6 +75,8 @@ from tests.test_torch_lm import to_torch_config
 from tests.test_torch_serve import one_thread  # noqa: F401
 from tests.test_torch_smoke_training import KERNELS, cpu_card  # noqa: F401
 
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 ROOT = Path(__file__).resolve().parents[1]
 MESHES = {"single": MeshShape((16, 16), ("data", "model")),
           "multi": MeshShape((2, 16, 16), ("pod", "data", "model"))}
@@ -91,12 +102,15 @@ def twin(tmp_path_factory):
         stderr=subprocess.STDOUT, text=True)
     try:
         port = {}
-        for arch, shape, m in CELLS:
-            hier = m == "multi" and configs.SHAPES[shape].kind == "train"
-            _, meta = dryrun.lower_cell(arch, shape, MESHES[m], hier=hier)
-            port[f"{arch}|{shape}|{m}"] = meta
+        for m in MESHES:
+            mesh = lmesh.make_production_mesh(multi_pod=m == "multi")
+            for arch, shape, _ in (c for c in CELLS if c[2] == m):
+                hier = m == "multi" and configs.SHAPES[shape].kind == "train"
+                _, meta = dryrun.lower_cell(arch, shape, mesh, hier=hier)
+                port[f"{arch}|{shape}|{m}"] = meta
         log = proc.communicate(timeout=300)[0]
     finally:
+        lmesh.release_production_mesh()
         proc.kill()
     assert proc.returncode == 0, log
     with open(tmp / "jax.json") as f:
@@ -247,6 +261,138 @@ def test_counted_flops_equal_flop_counter_mode(one_thread):
         step(state, batch, 0)
     assert flops == counter.get_total_flops() > 0
     assert nbytes > 0 and coll == 0
+
+
+# ---------------------------------------------------------------------------
+# The partitioned program: a train cell's state and batch as DTensors
+# ---------------------------------------------------------------------------
+
+
+def _whole_rank_flops(cfg, shape, mb: int, data: int) -> float:
+    """FLOPs of the unpartitioned step of one data-parallel rank holding
+    whole weights, on its block of the batch, traced on meta."""
+    model, opt = build_model(cfg), get_optimizer("adamw")
+    params = model.init(torch.Generator(), "meta")
+    batch = {k: torch.empty((shape.global_batch // data, shape.seq_len),
+                            dtype=torch.int32, device="meta")
+             for k in ("tokens", "targets")}
+    return ha.step_cost(make_train_step(model, opt, microbatches=mb),
+                        {"params": params, "opt": opt.init(params)},
+                        batch, 0)[0]
+
+
+@pytest.mark.parametrize("fsdp", [False, True])
+def test_train_cell_traces_the_partitioned_program(fsdp, one_thread):
+    """qwen2.5-3b's smoke config, 8 x 64 tokens in 2 microbatches, on a
+    fake ``(data, model) = (2, 2)`` mesh: the record is per device of the
+    partitioned program (``chips`` the mesh's 4 devices, the arguments
+    the state shards and the batch block, TP / FSDP collectives), its
+    FLOPs between 1/``model`` and 1 of the whole-weight rank's."""
+    shape = ShapeSpec("micro", 64, 8, "train")
+    mesh = lmesh.make_fake_mesh((2, 2), ("data", "model"))
+    try:
+        program, meta = dryrun.lower_cell("qwen2.5-3b", shape, mesh,
+                                          microbatches=2, smoke=True,
+                                          fsdp=fsdp)
+        state, batch = program.args[:2]
+        assert all(x.to_local().device.type == "meta"
+                   for x in leaves([state, batch]))
+        out = dryrun.analyse(program, meta)
+    finally:
+        lmesh.release_production_mesh()
+    assert out["partitioned"] and out["ranks"] == 4
+    batch_bytes = 2 * (8 // 2) * 64 * 4        # tokens, targets: int32
+    assert out["memory"]["argument_gb"] * 1e9 == pytest.approx(
+        out["sharded_state_bytes"] + batch_bytes, rel=1e-12)
+    assert out["collectives"]["counts"]["all-reduce"] > 0
+    if fsdp:
+        assert out["collectives"]["counts"]["all-gather"] > 0
+    hw = lmesh.H100                   # the record rounds to 6 decimals
+    roof = ha.Roofline(out["xla_cost"]["flops_per_dev"],
+                       out["xla_cost"]["bytes_per_dev"],
+                       out["collectives"]["loop_aware_gb"] * 1e9, 4,
+                       hw.peak_flops, hw.hbm_bw, hw.ici_bw,
+                       meta["model_flops"])
+    assert all(np.isfinite(t) and t > 0 for t in
+               (roof.compute_s, roof.memory_s, roof.collective_s))
+    assert out["roofline"]["hlo_flops_global"] == pytest.approx(
+        4 * out["xla_cost"]["flops_per_dev"], rel=1e-12)
+    whole = _whole_rank_flops(configs.get_arch("qwen2.5-3b").smoke, shape,
+                              2, 2)
+    assert whole / 2 <= out["xla_cost"]["flops_per_dev"] <= whole
+
+
+def _tiny_step(mb: int):
+    """A one-matrix model's train step (SGD with momentum): the gather of
+    ``w``'s rows at the tokens, squared, averaged."""
+    import types
+    model = types.SimpleNamespace(loss_fn=lambda p, b: (
+        p["w"][b["tokens"]].float() ** 2).mean())
+    opt = get_optimizer("sgdm", lr=0.1)
+    w = torch.empty((32, 16), dtype=torch.float32, device="meta")
+    return (make_train_step(model, opt, microbatches=mb),
+            {"params": {"w": w}, "opt": opt.init({"w": w})})
+
+
+@pytest.mark.parametrize("shape,names", [
+    ((2, 2, 2), ("pod", "data", "model")), ((4, 2), ("data", "model"))])
+def test_microbatches_of_a_batch_over_several_ranks(shape, names,
+                                                    one_thread):
+    """Regression: a train step's microbatch split (a view of the batch
+    dim into microbatches x rows) of a batch that ``batch_shardings``
+    lays over ``("pod", "data")`` or over more ``data`` ranks than
+    microbatches.  DTensor's view came out with local shards of the wrong
+    shape on the first (``shape '[1, 4, 4]' is invalid for input of size
+    8``) and refused the second; ``common.split_shardable`` now gathers
+    the mesh dims whose ranks, major first, do not divide the
+    microbatches.  Then the step traces, 8 rows of 4 tokens in 2
+    microbatches."""
+    from repro_torch.distrib.sharding import batch_shardings
+    from repro_torch.models.lm.common import split_shardable
+    mesh = lmesh.make_fake_mesh(shape, names)
+    try:
+        x = dryrun.placed_on_meta(mesh, {"t": torch.empty(
+            (8, 4), dtype=torch.int32, device="meta")},
+            batch_shardings(mesh, {"t": (8, 4)}))["t"]
+        y = split_shardable(x, 0, 2).reshape(2, 4, 4)
+        assert tuple(y.to_local().shape) == dryrun.local_shape(
+            mesh, y.shape, y.placements)
+        step, state = _tiny_step(2)
+        program = dryrun.partitioned_program(
+            step, mesh, state, {"tokens": ((8, 4), torch.int32)}, True)
+        tally = ha.Tally()
+        tally.run(program.fn, *program.args)
+    finally:
+        lmesh.release_production_mesh()
+    assert tally.collectives.count_by_kind["all-gather"] > 0
+
+
+def test_tally_counts_a_dtensor_program_locally(one_thread):
+    """On DTensors the counter lets DTensor dispatch first and counts the
+    local operations and the collectives it issues: a ``[8, 6] @ [6, 4]``
+    product with the rows over 2 ``data`` ranks and the contraction over
+    2 ``model`` ranks is one local ``[4, 3] @ [3, 4]`` product and, to
+    replicate it, one all-reduce over ``model`` and one all-gather over
+    ``data``; the arguments are the local shards; the shape inference of
+    DTensor's sharding propagation (global shapes, on fake tensors) is
+    not counted."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = lmesh.make_fake_mesh((2, 2), ("data", "model"))
+    try:
+        a, b = dryrun.placed_on_meta(
+            mesh, [torch.empty((8, 6), device="meta"),
+                   torch.empty((6, 4), device="meta")],
+            [(Shard(0), Shard(1)), (Replicate(), Shard(0))])
+        tally = ha.Tally()
+        tally.run(lambda a, b: (a @ b).full_tensor(), a, b)
+    finally:
+        lmesh.release_production_mesh()
+    assert tally.flops == 2 * 4 * 3 * 4
+    assert tally.argument_bytes == 4 * (4 * 3 + 3 * 4)
+    assert tally.collectives.count_by_kind == {"all-reduce": 1,
+                                               "all-gather": 1}
+    assert tally.collectives.bytes_by_kind == {"all-reduce": 4 * 4 * 4,
+                                               "all-gather": 4 * 4 * 4}
 
 
 # ---------------------------------------------------------------------------

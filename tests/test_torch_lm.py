@@ -55,6 +55,9 @@ from repro_torch.models.lm.xlstm import XLSTMConfig
 from tests.test_kernel_oracle import (E2E_LOSS_RTOL, E2E_PARAM_ATOL,
                                       E2E_PARAM_RTOL)
 from tests.test_torch_hybrid_step import INT8_LOSS
+from tests.test_torch_serve import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 jax.config.update("jax_platform_name", "cpu")
 

@@ -57,6 +57,8 @@ from tests.test_torch_lm import (E2E, INT8_UPDATE_RTOL, JAX_BACKEND,
 from tests.test_torch_serve import one_thread  # noqa: F401  (fixture)
 from tests.test_torch_train_int8_lm import TokenData
 
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 jax.config.update("jax_platform_name", "cpu")
 
 FAMILIES = ("moe", "xlstm")

@@ -34,6 +34,9 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref
 from repro_torch.models.lm.gla import chunked_gla
 from tests.test_kernel_oracle import assert_oracle_close
+from tests.test_torch_serve import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 jax.config.update("jax_platform_name", "cpu")
 

@@ -51,6 +51,12 @@ numpy with a seed.  Each rank builds the meshes
 * The hints (``_qkv_hints``, ``_resid_hint``, the logits chunk's) give
   the placements of the reference's specs, and are the identity without
   a mesh in scope.
+* The dry run of the partitioned step (``TALLY``): each rank counts one
+  more step under ``launch.hlo_analysis.Tally``; the same step traced on
+  meta by ``launch.dryrun.partitioned_program`` over a fake mesh of the
+  same shape (in this process, while the ranks run) counts the same
+  FLOPs, collectives, argument, output and peak bytes, and its argument
+  bytes equal one device's of JAX's compiled step less its PRNG key.
 """
 from __future__ import annotations
 
@@ -81,6 +87,9 @@ from repro_torch.train.step import make_train_step
 from tests.test_kernel_oracle import (E2E_LOSS_RTOL, E2E_PARAM_ATOL,
                                       E2E_PARAM_RTOL)
 from tests.torch_partition_worker import case_batches, case_config
+from tests.test_torch_serve import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -116,6 +125,15 @@ MODELS = {
 FAMILIES = ("zamba", "moe", "xlstm", "whisper")
 
 
+# the cases whose ranks count one more step under launch.hlo_analysis.Tally
+# and whose dry-run trace on meta (a fake mesh of the same shape) is held
+# to those counts: the dense smoke config on (2, 2) at fsdp both ways and
+# on (1, 4), each other family on one mesh
+TALLY = ("qwen-2x2-fsdp-mb1", "qwen-2x2-tp-mb1", "qwen-1x4-tp-mb1",
+         "zamba-1x4-tp-mb1", "moe-2x2-fsdp-mb1", "xlstm-2x2-fsdp-mb1",
+         "whisper-1x4-tp-mb1")
+
+
 def _case(model, mesh, fsdp, mb, use_flash=True):
     arch, variant, _ = MODELS[model]
     name = (f"{model}-{mesh[0]}x{mesh[1]}-{'fsdp' if fsdp else 'tp'}-mb{mb}"
@@ -123,7 +141,7 @@ def _case(model, mesh, fsdp, mb, use_flash=True):
     opt, opt_kw = OPTS.get(model, ("adamw", OPT_KW))
     return dict(name=name, model=model, arch=arch, variant=variant,
                 mesh=mesh, fsdp=fsdp, mb=mb, use_flash=use_flash,
-                batch=B * mb, opt=opt, opt_kw=opt_kw)
+                batch=B * mb, opt=opt, opt_kw=opt_kw, tally=name in TALLY)
 
 
 CASES = [_case("qwen", m, f, mb) for m in MESHES for f in (True, False)
@@ -247,6 +265,37 @@ def _inputs():
                 hints=HINTS)
 
 
+def _traced(inputs, case):
+    """The case's partitioned step traced on meta by the dry run
+    (``launch.dryrun.partitioned_program`` under ``Tally``) over a fake
+    mesh of the case's shape: the counts a rank's ``tally_step``
+    records."""
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch.dryrun import partitioned_program
+    from repro_torch.launch.hlo_analysis import Tally
+    model = build_model(case_config(case))
+    opt = get_optimizer(case["opt"], **case["opt_kw"])
+    params = model.init(torch.Generator(), "meta")
+    batch = case_batches(case, inputs)[0]
+    specs = {k: (tuple(v.shape), v.dtype) for k, v in batch.items()}
+    mesh = lmesh.make_fake_mesh(case["mesh"], ("data", "model"))
+    try:
+        program = partitioned_program(
+            make_train_step(model, opt, microbatches=case["mb"]), mesh,
+            {"params": params, "opt": opt.init(params)}, specs, case["fsdp"])
+        tally = Tally()
+        tally.run(program.fn, *program.args)
+    finally:
+        lmesh.release_production_mesh()
+    stats = tally.collectives
+    return {"flops": tally.flops, "argument_bytes": tally.argument_bytes,
+            "output_bytes": tally.output_bytes, "peak": tally.peak,
+            "coll_bytes": stats.bytes_by_kind,
+            "coll_counts": stats.count_by_kind,
+            "batch_bytes": sum(v.nbytes for v in batch.values())
+            // case["mesh"][0]}
+
+
 def _unpartitioned(inputs, case):
     """The port's plain step on one process, 2 steps."""
     model = build_model(case_config(case))
@@ -281,16 +330,18 @@ def runs(tmp_path_factory):
              for c in cmds]
     threads = torch.get_num_threads()
     try:
+        torch.set_num_threads(1)      # beside six busy processes
         inputs = _inputs()
         with open(tmp / "inputs.tmp", "wb") as f:
             pickle.dump(inputs, f)
         os.replace(tmp / "inputs.tmp", tmp / "inputs.pkl")
-        torch.set_num_threads(1)      # beside six busy processes
         plain = {}
         for c in CASES:
             key = (c["model"], c["use_flash"], c["mb"])
             if key not in plain:
                 plain[key] = _unpartitioned(inputs, c)
+        traced = {c["name"]: _traced(inputs, c) for c in CASES
+                  if c["tally"]}
         logs = [p.communicate(timeout=400)[0] for p in procs]
     finally:
         torch.set_num_threads(threads)
@@ -300,7 +351,7 @@ def runs(tmp_path_factory):
         assert p.returncode == 0, log
     out = {"ranks": [], "jax": {"cases": {}}, "inputs": inputs,
            "plain": {c["name"]: plain[(c["model"], c["use_flash"], c["mb"])]
-                     for c in CASES}}
+                     for c in CASES}, "traced": traced}
     for r in range(WORLD):
         with open(tmp / f"rank{r}.pkl", "rb") as f:
             out["ranks"].append(pickle.load(f))
@@ -370,6 +421,39 @@ def test_ranks_hold_one_state(runs, case):
         for a, b in zip(jax.tree.leaves(got["params"]),
                         jax.tree.leaves(first["params"])):
             assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("case", TALLY)
+def test_meta_trace_counts_what_a_rank_counts(runs, case):
+    """The dry run's trace of the case on meta over a fake mesh counts
+    what each gloo rank's ``Tally`` counts running the same partitioned
+    step: the FLOPs, the collectives' operand bytes and counts by kind,
+    the argument bytes (the rank's state shards, ``sharded_bytes``, and
+    its batch block), the output and the peak live bytes."""
+    want = runs["traced"][case]
+    assert want["flops"] > 0 and sum(want["coll_counts"].values()) > 0
+    for r in runs["ranks"]:
+        got = r["cases"][case]
+        assert got["tally"]["argument_bytes"] == want["argument_bytes"] == \
+            got["sharded_bytes"] + want["batch_bytes"]
+        for k in ("flops", "coll_bytes", "coll_counts", "output_bytes"):
+            assert got["tally"][k] == want[k], (k, got["tally"][k], want[k])
+        # The peaks differ by storages that the CPU run holds longer than
+        # the meta trace (not the gloo backend's: the same step over the
+        # fake backend on CPU tensors peaks as the rank does): 0 to
+        # 132 KB, 0 to 8.1 % of the peak, the rank's never below, measured
+        assert want["peak"] <= got["tally"]["peak"] <= 1.1 * want["peak"]
+
+
+@pytest.mark.parametrize("case", TALLY)
+def test_traced_argument_bytes_equal_jax(runs, case):
+    """One device's argument bytes of JAX's compiled partitioned step
+    (``memory_analysis()``) equal the port's traced argument bytes: the
+    state and batch shards.  The step's PRNG key (which the port's step
+    takes as a Python int) is not among them: ``jit`` drops an unused
+    argument (``keep_unused=False``)."""
+    assert runs["jax"]["cases"][case]["argument_bytes"] == \
+        runs["traced"][case]["argument_bytes"]
 
 
 def _gla_heads(cfg):

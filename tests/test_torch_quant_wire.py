@@ -40,6 +40,9 @@ from repro_torch.kernels import int8_quant as iq
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import quant_variants
 from repro_torch.kernels.ref import ref_quantize_int8, ref_wire_qdq_int8
+from tests.test_torch_serve import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 jax.config.update("jax_platform_name", "cpu")
 

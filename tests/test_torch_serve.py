@@ -33,6 +33,8 @@ from repro_torch.convert import model_params_from_numpy, model_params_to_numpy
 from repro_torch.models.lm import model as tmodel
 from repro_torch.serve import engine
 
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 jax.config.update("jax_platform_name", "cpu")
 
 ARCHS = ("qwen2.5-3b", "gemma3-12b", "pixtral-12b", "phi3-medium-14b",

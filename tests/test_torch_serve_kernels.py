@@ -42,6 +42,9 @@ from repro_torch.kernels import gla_scan as gs
 from repro_torch.models.lm import model as tmodel
 from tests.test_kernel_oracle import TOL
 from tests.test_torch_serve import ARCHS, N_DEC, check, run
+from tests.test_torch_serve import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def budget_close(kind: str, calls: int = 1):

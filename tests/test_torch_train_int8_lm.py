@@ -38,6 +38,9 @@ from tests.test_torch_train_loop import (B, assert_params_close,
                                          assert_plans_equal, changes,
                                          data_pair, fleets, jax_init, models,
                                          port_plan, same_params, slowdown)
+from tests.test_torch_serve import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 jax.config.update("jax_platform_name", "cpu")
 

@@ -45,6 +45,9 @@ from repro_torch.train import loop
 from tests.test_torch_cnn import model_pair
 from tests.test_torch_hybrid_step import NONE_TOL
 from tests.test_torch_lm import flat
+from tests.test_torch_serve import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 jax.config.update("jax_platform_name", "cpu")
 

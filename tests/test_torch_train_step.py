@@ -45,6 +45,8 @@ from tests.test_torch_lm import to_torch_config
 from tests.test_torch_serve import one_thread  # noqa: F401  (fixture)
 from tests.test_train_loop import CFG as JAX_LOOP_CFG
 
+pytestmark = pytest.mark.usefixtures("one_thread")
+
 jax.config.update("jax_platform_name", "cpu")
 
 SEQS = {"attention": 16, "moe": 16, "xlstm": 48}

@@ -57,6 +57,9 @@ from tests.test_torch_train_loop import (assert_plans_equal, changes,
                                          same_params, slowdown)
 from tests.test_torch_train_loop import \
     assert_params_close as assert_train_params_close
+from tests.test_torch_serve import one_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 jax.config.update("jax_platform_name", "cpu")
 

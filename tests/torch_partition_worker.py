@@ -7,8 +7,10 @@ reads the pickled numpy INPUTS, builds the ``(data, model)`` meshes the
 cases name, and pickles to OUT what this rank computed: per case the
 losses of ``repro_torch.distrib.partition.partitioned_step`` over
 ``make_train_step``, whether every leaf kept its placements after each
-step, the local state bytes beside ``launch.dryrun.sharded_bytes``, and
-the full params; the shapes the flash and GLA launchers were given; the
+step, the local state bytes beside ``launch.dryrun.sharded_bytes``, the
+full params and, for the cases that ask, one more step's counts under
+``launch.hlo_analysis.Tally``; the shapes the flash and GLA launchers
+were given; the
 flash and GLA routes on DTensors with stub launchers under
 ``CommDebugMode``; the sLSTM's local route beside its plain loop; the
 MoE routing hook and ``router_aux_loss`` on DTensors; and the placements
@@ -39,6 +41,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gla_scan as gs
 from repro_torch.kernels import ops as kops
 from repro_torch.launch.dryrun import sharded_bytes
+from repro_torch.launch.hlo_analysis import Tally
 from repro_torch.models.lm import attention as attn
 from repro_torch.models.lm import common
 from repro_torch.models.lm import moe as moe_mod
@@ -133,7 +136,24 @@ def run_case(case, inputs, mesh, log):
     out["params"] = numpy_tree(full_tree(state["params"]))
     out["launcher_shapes"] = list(log.shapes)
     out["gla_shapes"] = list(log.gla)
+    if case.get("tally"):
+        out["tally"] = tally_step(step, state, distribute_tree(
+            batches[0], mesh, batch_shardings(mesh, batches[0])))
     return out
+
+
+def tally_step(step, state, batch) -> dict:
+    """One more partitioned step from ``state`` on the laid-out ``batch``
+    under ``launch.hlo_analysis.Tally``: this rank's FLOPs, collective
+    operand bytes and counts by kind, argument, output and peak live
+    bytes (what the dry run's meta trace of the same cell records)."""
+    tally = Tally()
+    tally.run(step, state, batch, 0)
+    stats = tally.collectives
+    return {"flops": tally.flops, "argument_bytes": tally.argument_bytes,
+            "output_bytes": tally.output_bytes, "peak": tally.peak,
+            "coll_bytes": stats.bytes_by_kind,
+            "coll_counts": stats.count_by_kind}
 
 
 def raw_step_keeps_placements(inputs, mesh) -> bool:
